@@ -21,7 +21,25 @@ a line; any failure ends the run with a non-zero exit:
      fp32), with K1's launches counted per utterance;
   5. the same synthesis at reduced depth on the card and on the CPU with
      the same weights and noise: identical token ids, PCM within a
-     stated tolerance.
+     stated tolerance;
+  6. K2 (csrc/splash_attention.cu) against its plain PyTorch version on
+     the card: forward output and dq, dk, dv, in every mask mode, fp32
+     and bf16, at the LM training shape (8, 14, 512, 64) with the
+     training batch's lengths and at a ragged T; times of the kernels,
+     the plain version and torch's scaled_dot_product_attention (a
+     yardstick the port never calls), forward and forward+backward, at
+     the LM shape in fp32 causal;
+  7. Stage-1 LM training at the full width of configs/default.yaml
+     (random weights, seed 0, fp32, TF32 off) on a fixed batch of 8
+     plans padded to 512: 2 warm-up and 5 timed train steps, K2's
+     launches counted per step, the loss lower after 10 steps, 2 bf16
+     steps;
+  8. the training entry point, cli/train.main, at full width for one
+     epoch on a synthetic corpus: metrics, a checkpoint, and a second
+     call that resumes at the saved step;
+  9. LM training at reduced depth (2 layers) on the card and on the CPU
+     with the same weights and batch: loss, accuracy, grad norm and the
+     parameters after 3 steps within stated tolerances.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -55,6 +73,33 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # the PCM of the reduced-depth run may differ between the card and the CPU
 # by float32 sums in other orders through LM, flow and codec
 PCM_TOL_LSB = 16
+# K2's comparison tolerances, |err| <= atol + rtol * |plain|, output and
+# gradients. float32: the same math in other summation orders. bf16: both
+# sides compute in fp32 on the same bf16 inputs and round the result, so
+# two results that straddle a rounding point differ by one bf16 ulp, which
+# rtol 2^-7 covers. The kernels take Delta = rowsum(dO * O) from the
+# rounded output, as JAX's splash does, where autograd of the plain
+# version uses the unrounded one: dq and dk are compared after that
+# known shift (splash.rounded_delta_shift; up to ~1e-2, ~0 in fp32).
+# atol only covers fp32 noise on elements near zero (typical |ref| is
+# ~0.1 for the output and ~0.05-0.1 for the gradients)
+K2_TOL = {"float32": ((1e-5, 1e-5), (1e-5, 1e-4)),
+          "bfloat16": ((1e-5, 2.0 ** -7), (1e-4, 2.0 ** -7))}
+K2_MODES = {"causal": (1, -1), "full": (0, -1), "chunk50": (50, -1),
+            "chunk50_left2": (50, 2)}
+# the LM training batch of phases 7 and 9
+LM_BATCH, LM_TEXT, LM_PAD, LM_REF_FRAMES = 8, 40, 512, 224
+TRAIN_LR = 1e-4
+# phase 9, card against CPU, float32 through 2 layers in other summation
+# orders: each leaf's first-step gradient within 1e-4 of its largest
+# element; the metrics of 3 steps at lr 1e-4 to 1e-4 relative. Adam
+# scales each update to ~lr whatever the gradient's size, so where the
+# gradient lies within that limit of zero (sign and size not pinned) the
+# update rests on rounding and the element is left out of the parameter
+# check; every other weight within 5% of lr per update, and all but 0.1%
+# of each leaf within 1% of lr
+TRAIN_METRIC_RTOL = TRAIN_GRAD_RTOL = 1e-4
+TRAIN_PARAM_TOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_SHARE = 0.05, 1e-6, 1e-3
 
 
 def log(msg: str):
@@ -302,6 +347,447 @@ def cross_check(full_cfg, inputs, device="cuda"):
         raise AssertionError(f"PCM differs by {diff} LSB")
 
 
+def k2_checks(lm_shape, kv_lm):
+    """Phase 6: K2 against its plain version, forward and the three
+    gradients; returns K2's record (times at the LM shape, fp32
+    causal)."""
+    import torch
+    import torch.nn.functional as F
+
+    from minimax_speech_torch.kernels import splash
+
+    b, h, t, d = lm_shape
+    cases = [(lm_shape, kv_lm), ((2, 8, 77, d), [77, 40])]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lm_err = None
+
+    def run(fn, q, k, v, do, lens, chunk, left):
+        x = [a.clone().requires_grad_() for a in (q, k, v)]
+        out = fn(*x, lens, chunk, left)
+        return [out.detach()] + list(torch.autograd.grad(out, x, do))
+
+    failed = []
+    for shape, kv in cases:
+        lens = torch.tensor(kv, device="cuda", dtype=torch.int32)
+        base = [torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(4)]
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            q, k, v, do = (x.to(dtype) for x in base)
+            for mname, (chunk, left) in K2_MODES.items():
+                saved = dict(splash.launches)
+                ours = run(splash.splash_chunk_attention, q, k, v, do, lens,
+                           chunk, left)
+                torch.cuda.synchronize()
+                splash.launches.update(saved)  # checks are not the path
+                ref = run(splash.reference_splash_attention, q, k, v, do,
+                          lens, chunk, left)
+                dq_shift, dk_shift = splash.rounded_delta_shift(
+                    q, k, v, ours[0], do, lens, chunk, left)
+                shifts = [0.0, dq_shift, dk_shift, 0.0]
+                errs, parts, ok = [], [], True
+                for i, (a, r) in enumerate(zip(ours, ref)):
+                    a, r = a.float(), r.float()
+                    atol, rtol = K2_TOL[dname][min(i, 1)]
+                    if not torch.isfinite(a).all():
+                        raise AssertionError(f"K2 non-finite {shape} {mname}")
+                    diff = (a - r - shifts[i]).abs()
+                    errs.append(float(diff.max()))
+                    # the least atol that passes at this rtol, beside the
+                    # typical |ref|, so the margin shows
+                    need = max(0.0, float((diff - rtol * r.abs()).max()))
+                    ok &= need <= atol
+                    parts.append(f"{errs[-1]:.2e}/{need:.1e}/"
+                                 f"{float(r.abs().median()):.1e}")
+                log(f"[k2] T={shape[2]} kv={list(kv)} {dname:8s} "
+                    f"{mname:13s} out,dq,dk,dv max_err/need_atol/median|ref| "
+                    f"{' '.join(parts)} (rounded-O Delta shift dq/dk max "
+                    f"{float(dq_shift.abs().max()):.1e}/"
+                    f"{float(dk_shift.abs().max()):.1e}) tol "
+                    f"{K2_TOL[dname][0][0]:g}+"
+                    f"{K2_TOL[dname][0][1]:g}*|ref| (grads "
+                    f"{K2_TOL[dname][1][0]:g}+{K2_TOL[dname][1][1]:g}*|ref|) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"{shape} {dname} {mname} errs {errs}")
+                if shape == lm_shape and dname == "float32" \
+                        and mname == "causal":
+                    lm_err = max(errs)
+    if failed:
+        raise AssertionError(f"K2 disagrees: {failed}")
+
+    # times at the LM training shape, fp32 causal
+    q, k, v, do = (torch.randn(lm_shape, generator=gen, device="cuda")
+                   for _ in range(4))
+    lens = torch.tensor(kv_lm, device="cuda", dtype=torch.int32)
+    mask = splash.visible_mask(t, lens, 1, -1)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def fwd(fn):
+        return lambda: fn(q, k, v)
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(qg, kg, vg), (qg, kg, vg), do)
+
+    kernel = lambda a, b_, c: splash.splash_causal_attention(a, b_, c, lens)  # noqa: E731
+    plain = lambda a, b_, c: splash.reference_splash_attention(  # noqa: E731
+        a, b_, c, lens, 1, -1)
+    sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
+        a, b_, c, attn_mask=mask)
+    saved = dict(splash.launches)
+    out = kernel(qg, kg, vg)
+    times = {"ms": cuda_ms(fwd(kernel)),
+             "bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                 out, (qg, kg, vg), do, retain_graph=True)),
+             "fwd_bwd_ms": cuda_ms(fwd_bwd(kernel))}
+    splash.launches.update(saved)  # timing launches are not the path
+    times.update(plain_ms=cuda_ms(fwd(plain)),
+                 plain_fwd_bwd_ms=cuda_ms(fwd_bwd(plain)),
+                 library_ms=cuda_ms(fwd(sdpa)),
+                 library_fwd_bwd_ms=cuda_ms(fwd_bwd(sdpa)))
+    pairs = int(mask.sum()) * h
+    tensor_bytes = q.numel() * q.element_size()
+    fwd_bytes = 4 * tensor_bytes + lens.numel() * 4
+    bounds = {}
+    for name, n_bytes, flops in (("fwd", fwd_bytes, 2 * 2 * d * pairs),
+                                 ("fwd_bwd", fwd_bytes + 4 * tensor_bytes,
+                                  7 * 2 * d * pairs)):
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        bounds[name] = (max(bytes_ms, ops_ms),
+                        "bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"[k2] bound {name}: {n_bytes} B -> {bytes_ms:.4f} ms; {flops} "
+            f"FLOP ({pairs} visible pairs) at fp32 peak -> {ops_ms:.4f} ms")
+    log(f"[k2] LM shape {tuple(lm_shape)} kv={list(kv_lm)} fp32 causal: "
+        f"kernel fwd {times['ms']:.4f} ms, bwd {times['bwd_ms']:.4f} ms, "
+        f"fwd+bwd {times['fwd_bwd_ms']:.4f} ms; plain fwd "
+        f"{times['plain_ms']:.4f} ms, fwd+bwd {times['plain_fwd_bwd_ms']:.4f}"
+        f" ms; sdpa fwd {times['library_ms']:.4f} ms, fwd+bwd "
+        f"{times['library_fwd_bwd_ms']:.4f} ms; bound fwd "
+        f"{bounds['fwd'][0]:.4f} ms, fwd+bwd {bounds['fwd_bwd'][0]:.4f} ms")
+    return {"name": "splash_attention", "route": "cuda",
+            "source": "minimax_speech_torch/csrc/splash_attention.cu",
+            "replaces": "minimax_speech_tpu/kernels/splash.py:92",
+            "max_abs_err": lm_err, **times,
+            "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1],
+            "fwd_bwd_bound_ms": bounds["fwd_bwd"][0],
+            "fwd_bwd_bound_by": bounds["fwd_bwd"][1]}
+
+
+def lm_batch(lm_cfg, batch: int = LM_BATCH, pad_to: int = LM_PAD):
+    """The fixed LM training batch: unistream plans of LM_TEXT text tokens
+    and 250-460 speech tokens, padded to `pad_to`, and ragged reference
+    mels, from numpy seed 0."""
+    from minimax_speech_torch.models import llm as llm_mod
+
+    rng = np.random.default_rng(0)
+    n_speech = rng.integers(250, 461, batch)
+    plan = llm_mod.build_lm_plan(
+        [rng.integers(1, lm_cfg.qwen.vocab_size, LM_TEXT)
+         for _ in range(batch)],
+        [rng.integers(0, lm_cfg.speech_token_size, n) for n in n_speech],
+        mix_ratio=lm_cfg.mix_ratio, pad_to=pad_to,
+        eos=lm_cfg.eos_token, fill=lm_cfg.fill_token)
+    mel_len = rng.integers(100, LM_REF_FRAMES + 1, batch).astype(np.int32)
+    ref = np.zeros((batch, LM_REF_FRAMES, lm_cfg.speaker.mel_dim),
+                   np.float32)
+    for i, n in enumerate(mel_len):
+        ref[i, :n] = rng.standard_normal((n, lm_cfg.speaker.mel_dim))
+    return {**plan, "reference_mel": ref, "reference_mel_len": mel_len}
+
+
+def _on(batch, device):
+    import torch
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _lm_state(lm_cfg, device, seed=0):
+    import torch
+
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.train import schedule, steps
+    from minimax_speech_torch.utils import params_io
+
+    model = params_io.init_params(llm_mod.SpeechLM(lm_cfg),
+                                  torch.Generator().manual_seed(seed))
+    model.to(device)
+    tx = schedule.make_optimizer(lr=TRAIN_LR, warmup_steps=0)
+    return model, steps.make_train_state(model, tx)
+
+
+def profile_step(run_step):
+    """One train step under torch.profiler: device busy time against the
+    host's wall time, K2's share, and the kernels that take the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    kernels = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(us for _, us, _ in kernels) / 1e3
+    if busy_ms == 0:
+        log("[profile] the profiler saw no device time: not measured")
+        return
+    k2_ms = sum(us for name, us, _ in kernels if "splash_" in name) / 1e3
+    top = sorted(kernels, key=lambda x: -x[1])[:8]
+    log(f"[profile] one train step: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), K2 "
+        f"kernels {k2_ms:.2f} ms ({k2_ms / busy_ms:.3f} of busy), "
+        f"{len(kernels)} kernel names")
+    for name, us, n in top:
+        log(f"[profile]   {us / 1e3:8.2f} ms x{n:<5d} {name[:90]}")
+
+
+def train_main_path(lm_cfg, batch, card: str, device="cuda", timed=5):
+    """Phase 7 body: 2 warm-up steps, `timed` counted and timed ones, then
+    more to 10 in all, and 2 bf16 steps. Returns K2's launch record."""
+    import torch
+
+    from minimax_speech_torch.kernels import splash
+    from minimax_speech_torch.train import steps
+
+    model, state = _lm_state(lm_cfg, device)
+    step = steps.make_lm_train_step(model, device=device)
+    b = _on(batch, device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+
+    def one():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])  # syncs
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            raise AssertionError(f"train step {state.step}: loss {loss}, "
+                                 f"grad_norm {gn}")
+        losses.append(loss)
+
+    for _ in range(2):
+        one()
+    splash.launches.update(forward=0, backward=0)
+    for _ in range(timed):
+        one()
+    counted = dict(splash.launches)
+    if device == "cuda":
+        profile_step(lambda: one())
+    while state.step < 10:
+        one()
+    with torch.no_grad():
+        final = float(steps.make_lm_loss_fn(model)(b)[0])
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    step_s = statistics.median(secs[2: 2 + timed])
+    tokens = int(batch["seq_len"].sum())
+    per_step = {k: n / timed for k, n in counted.items()}
+    log(f"[train] {card} | B={LM_BATCH} L={batch['src_type'].shape[1]} "
+        f"plan tokens {tokens} | median step_s {step_s:.4f} (steps "
+        f"{[round(x, 4) for x in secs[2: 2 + timed]]}) | tokens/s "
+        f"{tokens / step_s:.1f} | peak memory {peak / 2**30:.2f} GiB | K2 "
+        f"launches per step {per_step} | loss {losses[0]:.4f} -> "
+        f"{final:.4f} after {state.step} steps")
+    n_layers = lm_cfg.qwen.n_layers
+    if device == "cuda" and per_step != {"forward": n_layers,
+                                         "backward": n_layers}:
+        raise AssertionError(f"K2 launches per step {per_step}, expected "
+                             f"{n_layers} and {n_layers}")
+    if not final < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> {final}")
+
+    bf16_step = steps.make_lm_train_step(model, bf16=True, device=device)
+    for _ in range(2):
+        state, m = bf16_step(state, b)
+        if not (np.isfinite(float(m["loss"]))
+                and np.isfinite(float(m["grad_norm"]))):
+            raise AssertionError(f"bf16 step: {m}")
+    log(f"[train] bf16 steps finite: loss {float(m['loss']):.4f}, "
+        f"grad_norm {float(m['grad_norm']):.4f}")
+    del model, state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": sum(counted.values()),
+            "launches_per_step": per_step, "step_s": step_s,
+            "tokens_per_s": tokens / step_s}
+
+
+def write_corpus(root: Path, n: int = 16, seed: int = 0) -> Path:
+    """n wavs of 8-16 s at 24 kHz with .txt, _fsq.npy and _latent2x.npy
+    sidecars (tokens at 25 Hz, latents at 50 Hz); returns the list file."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        sec = rng.uniform(8.0, 16.0)
+        t = np.arange(int(sec * 24000)) / 24000
+        audio = (0.5 * np.sin(2 * np.pi * 220.0 * t)
+                 + 0.3 * np.sin(2 * np.pi * 880.0 * t)
+                 + 0.05 * rng.standard_normal(t.shape))
+        p = root / f"utt{i}.wav"
+        with wave.open(str(p), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(24000)
+            w.writeframes((np.clip(audio, -1, 1) * 32767).astype(
+                np.int16).tobytes())
+        (root / f"utt{i}.txt").write_text(f"synthetic utterance {i}")
+        n_tok = len(audio) // 960
+        np.save(root / f"utt{i}_fsq.npy",
+                rng.integers(0, 6561, n_tok).astype(np.int32))
+        np.save(root / f"utt{i}_latent2x.npy",
+                rng.standard_normal((n_tok * 2, 80)).astype(np.float32))
+        paths.append(str(p))
+    lst = root / "data.list"
+    lst.write_text("\n".join(paths))
+    return lst
+
+
+def cli_phase(config: str = "configs/default.yaml", device: str = "cuda"):
+    """Phase 8: cli/train.main at full width for one epoch on a synthetic
+    corpus (a batch holds about 8 utterances), then a second call that
+    resumes at the saved step."""
+    import shutil
+    import tempfile
+
+    from minimax_speech_torch.cli import train as train_cli
+
+    repo = Path(__file__).resolve().parent
+    scratch = repo / "build"
+    scratch.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train_cli_", dir=scratch))
+    try:
+        lst = write_corpus(root)
+        model_dir = root / "exp"
+        # longest latent (16 s at 50 Hz = 800 frames) x 8 utterances
+        argv = ["--model", "llm", "--config", str(repo / config),
+                "--train_data", str(lst), "--model_dir", str(model_dir),
+                "--device", device, "--max_epoch", "1",
+                "--override", "train.max_frames_in_batch=6400",
+                "--override", "train.save_per_step=2",
+                "--override", "train.warmup_steps=0",
+                "--override", "train.log_interval=1"]
+        t0 = time.perf_counter()
+        first = train_cli.main(argv)
+        t1 = time.perf_counter()
+        rows = [json.loads(line) for line in
+                (model_dir / "llm_metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        ckpts = sorted(p.name for p in (model_dir / "ckpt").iterdir())
+        if not losses or not np.isfinite(losses).all() or not ckpts:
+            raise AssertionError(f"train CLI: losses {losses}, "
+                                 f"checkpoints {ckpts}")
+        second = train_cli.main(argv)
+        t2 = time.perf_counter()
+        if second.step != first.step or str(first.step) not in ckpts:
+            raise AssertionError(f"train CLI resume: step {second.step}, "
+                                 f"first run {first.step}, ckpts {ckpts}")
+        log(f"[cli] one epoch of {len(losses)} steps in {t1 - t0:.1f} s, "
+            f"losses {[round(x, 4) for x in losses]}, checkpoints {ckpts}; "
+            f"second call resumed at step {second.step} in {t2 - t1:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def first_grads(model, batch) -> dict:
+    """{parameter name: gradient on the CPU} of the LM loss at the
+    current weights (zeros where a parameter gets none)."""
+    import torch
+
+    from minimax_speech_torch.train import steps
+
+    names, params = zip(*model.named_parameters())
+    loss, _ = steps.make_lm_loss_fn(model)(batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+            for n, p, g in zip(names, params, grads)}
+
+
+def train_cross_check(full_lm_cfg, batch, device="cuda", steps_n=3):
+    """Phase 9: 2 LM layers, the same weights and batch on `device` and on
+    the CPU: every leaf's gradient at the start, the metrics of each
+    step, and the parameters after `steps_n` steps."""
+    import torch
+
+    from minimax_speech_torch.train import steps
+
+    cfg = dataclasses.replace(full_lm_cfg, qwen=dataclasses.replace(
+        full_lm_cfg.qwen, n_layers=2))
+    runs = {}
+    for dev in ("cpu", device):
+        model, state = _lm_state(cfg, dev, seed=5)
+        b = _on(batch, dev)
+        grads = first_grads(model, b)
+        step = steps.make_lm_train_step(model, device=dev)
+        metrics = []
+        for _ in range(steps_n):
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (metrics, grads, {n: p.detach().cpu() for n, p in
+                                      model.named_parameters()})
+        del model, state, b
+    (m_dev, g_dev, p_dev), (m_cpu, g_cpu, p_cpu) = runs[device], runs["cpu"]
+    worst = max(abs(a[k] - c[k]) / max(abs(c[k]), 1e-12)
+                for a, c in zip(m_dev, m_cpu) for k in c)
+    max_tol = TRAIN_PARAM_TOL * TRAIN_LR * steps_n
+    bad, grad_err, leaf_max, leaf_share = [], {}, {}, {}
+    n_out = n_moved_out = 0
+    out_max = 0.0
+    for n in p_cpu:
+        scale = float(g_cpu[n].abs().max())
+        grad_err[n] = float((g_dev[n] - g_cpu[n]).abs().max()) / max(
+            scale, 1e-30)
+        # elements whose gradient the check above does not pin (within its
+        # limit of zero): Adam's update there rests on rounding
+        pinned = g_cpu[n].abs() >= TRAIN_GRAD_RTOL * scale
+        d = (p_dev[n] - p_cpu[n]).abs()
+        if not pinned.all():
+            n_out += int((~pinned).sum())
+            n_moved_out += int(((~pinned) & (g_cpu[n] != 0)).sum())
+            out_max = max(out_max, float(d[~pinned].max()))
+        d = d[pinned]
+        leaf_max[n] = float(d.max()) if d.numel() else 0.0
+        leaf_share[n] = float((d > TRAIN_PARAM_ATOL).float().mean()) \
+            if d.numel() else 0.0
+        if grad_err[n] > TRAIN_GRAD_RTOL or leaf_max[n] > max_tol \
+                or leaf_share[n] > TRAIN_PARAM_SHARE:
+            bad.append(f"{n}: grad err {grad_err[n]:.2e} of its largest, "
+                       f"param max {leaf_max[n]:.2e} share "
+                       f"{leaf_share[n]:.2e}")
+    worst_grad = max(grad_err, key=grad_err.get)
+    worst_max = max(leaf_max, key=leaf_max.get)
+    worst_share = max(leaf_share, key=leaf_share.get)
+    log(f"[cross-train] 2 layers, {steps_n} steps, TF32 off: loss "
+        f"{[round(m['loss'], 5) for m in m_dev]} vs "
+        f"{[round(m['loss'], 5) for m in m_cpu]}; worst metric rel diff "
+        f"{worst:.2e} (tol {TRAIN_METRIC_RTOL:g}); first-step gradient per "
+        f"leaf: worst max |diff| {grad_err[worst_grad]:.2e} of the leaf's "
+        f"largest ({worst_grad}; tol {TRAIN_GRAD_RTOL:g}); params per "
+        f"leaf: worst max |diff| {leaf_max[worst_max]:.2e} ({worst_max}; "
+        f"tol {max_tol:g}), worst share above {TRAIN_PARAM_ATOL:g} "
+        f"{leaf_share[worst_share]:.2e} ({worst_share}; tol "
+        f"{TRAIN_PARAM_SHARE:g}); left out {n_out} elements with gradient "
+        f"below {TRAIN_GRAD_RTOL:g} of their leaf's largest ({n_moved_out} "
+        f"of them nonzero), max |diff| there {out_max:.2e}")
+    for line in bad:
+        log(f"[cross-train]   FAIL {line}")
+    if worst > TRAIN_METRIC_RTOL or bad:
+        raise AssertionError("training differs between the card and the CPU")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -351,10 +837,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     cross_check(cfg, inputs)
-
     record["launches"] = per_utt[-1]
+
+    batch = lm_batch(cfg.lm)
+    q = cfg.lm.qwen
+    k2 = k2_checks((LM_BATCH, q.n_heads, LM_PAD, q.head_dim),
+                   [int(n) for n in batch["seq_len"]])
+    k2.update(train_main_path(cfg.lm, batch, card))
+    cli_phase()
+    train_cross_check(cfg.lm, batch)
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

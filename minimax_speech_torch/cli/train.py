@@ -1,0 +1,229 @@
+"""Stage-1 LM training CLI: `python -m minimax_speech_torch.cli.train --model llm`.
+
+Port of the single-device `--model llm` path of
+minimax_speech_tpu/cli/train.py: config + overrides, the data pipeline,
+the model from a seed or an `--init_ckpt` .npz (the JAX package's
+format), AdamW + clip, the metrics log, checkpoints with resume, the
+epoch loop, `--cv_data`, and `--export_npz` (a .npz the JAX package
+loads). Runs on `--device` (default cuda; raises without a GPU).
+
+Epoch resume departs from the JAX CLI on purpose, fixing two flaws:
+  * the run key hashes the train list's content and the --dpo, --bf16
+    and --init_ckpt flags besides the train config and max_epoch, so a
+    run on other data or with other flags starts at epoch 0;
+  * the rollback is counted in epochs: epoch_state.json keeps the step
+    at which each completed epoch ended, and a resume from a checkpoint
+    at step S restarts at the first epoch that ended after S.
+
+Not ported yet (each raises NotImplementedError; ROADMAP.md, queue 1):
+--model flow, --dpo, --distributed, --tp/--dp > 1, and a tokenizer
+path.
+"""
+from __future__ import annotations
+
+import argparse
+import bisect
+import hashlib
+import json
+from pathlib import Path
+
+import numpy as np
+
+INIT_SEED = 1986
+_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, training slice)"
+BATCH_KEYS = ("src_type", "tok_id", "target", "seq_len", "reference_mel",
+              "reference_mel_len")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--model", choices=["llm", "flow"], required=True)
+    p.add_argument("--config", type=str, default="configs/default.yaml")
+    p.add_argument("--override", action="append", default=[],
+                   help="dotted config overrides, e.g. train.lr=1e-5")
+    p.add_argument("--train_data", type=str, required=True,
+                   help="file with one wav path per line")
+    p.add_argument("--cv_data", type=str, default=None)
+    p.add_argument("--model_dir", type=str, required=True)
+    p.add_argument("--tokenizer_path", type=str, default=None)
+    p.add_argument("--init_ckpt", type=str, default=None,
+                   help=".npz params to start from (the JAX package's "
+                        "format)")
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=None)
+    p.add_argument("--max_epoch", type=int, default=None)
+    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 forward/backward (fp32 optimizer)")
+    p.add_argument("--dpo", action="store_true")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="batches prepared ahead in a background thread "
+                        "(0 disables)")
+    p.add_argument("--export_npz", type=str, default=None,
+                   help="also write the final params as a .npz in the "
+                        "JAX package's format")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def check_ported(args):
+    if args.model != "llm":
+        raise NotImplementedError(f"--model {args.model} {_NOT_PORTED}")
+    if args.dpo:
+        raise NotImplementedError(f"--dpo {_NOT_PORTED}")
+    if args.distributed:
+        raise NotImplementedError(f"--distributed {_NOT_PORTED}")
+    if args.tp != 1 or (args.dp or 1) != 1:
+        raise NotImplementedError(f"--tp/--dp > 1 {_NOT_PORTED}")
+
+
+def build_stages(cfg_train, tokenizer):
+    """The LM chain: open, tokenize, filter, resample, reference mel,
+    shuffle, sort, frame-budget batches, plan padding."""
+    from minimax_speech_torch.data import pipeline as dp
+    return [
+        dp.individual_file_opener,
+        lambda it: dp.tokenize(it, tokenizer),
+        dp.filter_lengths,
+        dp.resample,
+        dp.extract_reference_mel,
+        lambda it: dp.shuffle(it, 1000),
+        lambda it: dp.sort_by_len(it, 500),
+        lambda it: dp.dynamic_batch(
+            it, cfg_train.get("max_frames_in_batch", 25000)),
+        lambda it: dp.padding_llm(
+            it, bistream_prob=cfg_train.get("bistream_prob", 0.5)),
+    ]
+
+
+def run_key(tcfg: dict, max_epoch: int, train_list: str, args) -> str:
+    """Identity of a run for epoch resume: the train config, the epoch
+    budget, the train list's content and the flags that change what is
+    trained."""
+    data = hashlib.sha256(Path(train_list).read_bytes()).hexdigest()
+    return hashlib.sha256(json.dumps(
+        [tcfg, max_epoch, data, bool(args.dpo), bool(args.bf16),
+         args.init_ckpt], sort_keys=True, default=str).encode()
+    ).hexdigest()[:16]
+
+
+def resume_epoch(ep_path: Path, key: str, restored_step: int) -> int:
+    """The first epoch to train: the count of completed epochs of this
+    run whose last step the restored checkpoint covers."""
+    if not restored_step or not ep_path.exists():
+        return 0
+    try:
+        es = json.loads(ep_path.read_text())
+        if es.get("key") != key:
+            return 0
+        return bisect.bisect_right([int(s) for s in es["end_steps"]],
+                                   restored_step)
+    except (ValueError, KeyError, TypeError):  # partial write: start over
+        return 0
+
+
+def write_epoch_state(ep_path: Path, key: str, end_steps: list[int]):
+    tmp = ep_path.with_suffix(".json.tmp")
+    tmp.write_text(json.dumps({"key": key, "epoch": len(end_steps) - 1,
+                               "end_steps": end_steps}))
+    tmp.replace(ep_path)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    check_ported(args)
+
+    import torch
+
+    from minimax_speech_torch import config as cfg_lib
+    from minimax_speech_torch.data import pipeline as dp
+    from minimax_speech_torch.infer.frontend import get_tokenizer
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.train import schedule, steps
+    from minimax_speech_torch.train.checkpoint import CheckpointManager
+    from minimax_speech_torch.train.executor import Executor
+    from minimax_speech_torch.utils import params_io
+    from minimax_speech_torch.utils.device import resolve_device
+    from minimax_speech_torch.utils.logging import MetricsLogger
+
+    device = resolve_device(args.device)
+    data = cfg_lib.apply_overrides(cfg_lib.load_yaml(args.config),
+                                   args.override)
+    tts_cfg = cfg_lib.build_tts_config(data.get("model", {}))
+    tcfg = data.get("train", {})
+    tokenizer = get_tokenizer(args.tokenizer_path)
+
+    model = llm_mod.SpeechLM(tts_cfg.lm)
+    if args.init_ckpt:
+        params_io.load_flax_params(model, params_io.load_params(
+            args.init_ckpt))
+    else:
+        params_io.init_params(model,
+                              torch.Generator().manual_seed(INIT_SEED))
+    model.to(device)
+    step_fn = steps.make_lm_train_step(model, bf16=args.bf16, device=device)
+    tx = schedule.make_optimizer(
+        lr=tcfg.get("lr", 5e-5), warmup_steps=tcfg.get("warmup_steps", 500),
+        scheduler=tcfg.get("scheduler", "constantlr"),
+        grad_clip=tcfg.get("grad_clip", 1.0),
+        accum_steps=tcfg.get("accum_grad", 1))
+    state = steps.make_train_state(model, tx)
+
+    logger = MetricsLogger(args.model_dir, name=args.model,
+                           log_interval=tcfg.get("log_interval", 5))
+    ckpt = CheckpointManager(str(Path(args.model_dir) / "ckpt"))
+    state, start_step = ckpt.restore(state)
+    if start_step:
+        print(f"resumed from step {start_step}")
+
+    def put(batch):
+        return {k: torch.as_tensor(np.asarray(v)).to(device)
+                for k, v in batch.items() if k in BATCH_KEYS}
+
+    ex = Executor(step_fn, state, logger, ckpt,
+                  save_per_step=tcfg.get("save_per_step", 2000),
+                  put_batch=put, device=device)
+
+    def data_list(path, **kw):
+        return dp.DataList([{"src": line.strip()} for line in
+                            Path(path).read_text().splitlines()
+                            if line.strip()], **kw)
+
+    source = data_list(args.train_data)
+    stages = build_stages(tcfg, tokenizer)
+    cv_source = data_list(args.cv_data, shuffle=False) if args.cv_data \
+        else None
+    lm_loss = steps.make_lm_loss_fn(model, bf16=args.bf16)
+
+    def cv_loss(state, batch):
+        with torch.no_grad():
+            loss, acc = lm_loss(batch)
+        return {"loss": loss, "acc": acc}
+
+    max_epoch = args.max_epoch or tcfg.get("max_epoch", 2000)
+    key = run_key(tcfg, max_epoch, args.train_data, args)
+    ep_path = Path(args.model_dir) / "epoch_state.json"
+    start_epoch = resume_epoch(ep_path, key, start_step)
+    end_steps = []
+    if start_epoch:
+        end_steps = json.loads(ep_path.read_text())["end_steps"][:start_epoch]
+        print(f"resuming at epoch {start_epoch}/{max_epoch}")
+    for epoch in range(start_epoch, max_epoch):
+        source.set_epoch(epoch)
+        ex.train_one_epoch(dp.prefetch(dp.build_dataset(source, stages),
+                                       depth=args.prefetch))
+        logger.log(ex.step, {"epoch": epoch}, force=True)
+        end_steps.append(ex.step)
+        write_epoch_state(ep_path, key, end_steps)
+        if cv_source is not None:
+            ex.cv(dp.build_dataset(cv_source, stages), cv_loss)
+    ckpt.save(ex.step, ex.state)
+    if args.export_npz:
+        params_io.save_params(args.export_npz, model)
+        print(f"exported params to {args.export_npz}")
+    return ex.state
+
+
+if __name__ == "__main__":
+    main()

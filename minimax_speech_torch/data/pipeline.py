@@ -1,0 +1,332 @@
+"""Host-side data pipeline for LM training: chained generator stages.
+
+Port of the stages of minimax_speech_tpu/data/pipeline.py that the LM
+chain of cli/train.py runs:
+
+  DataList -> individual_file_opener (wav + sidecars) -> tokenize ->
+  filter_lengths -> resample -> extract_reference_mel -> shuffle ->
+  sort_by_len -> dynamic_batch -> padding_llm -> prefetch
+
+Stages are generator transformers, fn(iterable, **cfg) -> iterable of
+sample dicts (batches: lists of dicts, then dicts of numpy arrays). They
+draw from Python's `random` in the JAX package's order, so a run seeded
+the same way gives the same batches. mp3 sources are not ported yet
+(ROADMAP.md, queue 1, training slice) and raise.
+"""
+from __future__ import annotations
+
+import queue
+import random
+import threading
+import wave
+from pathlib import Path
+from typing import Callable, Iterable, Iterator
+
+import numpy as np
+
+from minimax_speech_torch.models import llm as llm_mod
+from minimax_speech_torch.ops import mel as mel_ops
+
+TOKEN_LATENT_RATIO = 2  # 50 Hz latents per 25 Hz token
+
+
+class DataList:
+    """The items, shuffled by a Random seeded with the epoch."""
+
+    def __init__(self, items: list, shuffle: bool = True):
+        self.items = list(items)
+        self.shuffle = shuffle
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __iter__(self):
+        data = list(self.items)
+        if self.shuffle:
+            random.Random(self.epoch).shuffle(data)
+        for item in data:
+            yield dict(item) if isinstance(item, dict) else {"src": item}
+
+
+def _load_array(stem: str) -> np.ndarray:
+    for suffix, loader in ((".npy", np.load), (".npz", _load_npz),
+                           (".pt", _load_pt)):
+        p = Path(stem + suffix)
+        if p.exists():
+            return loader(str(p))
+    raise FileNotFoundError(stem + ".{npy,npz,pt}")
+
+
+def _load_npz(path: str) -> np.ndarray:
+    """{z, mu, ...} archive: prefer mu."""
+    z = np.load(path)
+    for k in ("mu", "z", "tokens"):
+        if k in z.files:
+            return z[k]
+    return z[z.files[0]]
+
+
+def _load_pt(path: str) -> np.ndarray:
+    import torch
+    t = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(t, dict):
+        t = t.get("z", t.get("tokens", next(iter(t.values()))))
+    return t.numpy() if hasattr(t, "numpy") else np.asarray(t)
+
+
+def attach_sidecars(sample: dict) -> Iterator[dict]:
+    """Attach <stem>.txt, <stem>_fsq.* and <stem>_latent2x.* to a sample
+    that already carries decoded audio, tokens and latents cut to a
+    common length; skip-and-log on error."""
+    try:
+        stem = Path(sample["src"]).with_suffix("")
+        sample["text"] = Path(str(stem) + ".txt").read_text().strip()
+        tok = _load_array(str(stem) + "_fsq")
+        lat = _load_array(str(stem) + "_latent2x")
+        if lat.ndim == 3:
+            lat = lat[0]
+        if lat.shape[0] == 80 and lat.shape[1] != 80:  # (80, T) -> (T, 80)
+            lat = lat.T
+        n = min(len(tok), lat.shape[0] // TOKEN_LATENT_RATIO)
+        sample["speech_token"] = np.asarray(tok[:n], np.int32)
+        sample["speech_latent"] = np.asarray(
+            lat[: n * TOKEN_LATENT_RATIO], np.float32)
+        yield sample
+    except (OSError, ValueError, KeyError, IndexError) as e:
+        print(f"opener skip {sample.get('src')}: {e}")
+
+
+def _expand_src(src: str) -> Iterator[str]:
+    """One data-list entry -> wav paths: a `.json` index ({"items": [{"wav":
+    ...}]} or {"data": [...]}), a directory (every *.wav below it), or a
+    file."""
+    if src.endswith(".json"):
+        import json
+        idx = json.loads(Path(src).read_text())
+        for r in idx.get("items", idx.get("data", [])):
+            yield r["wav"] if isinstance(r, dict) else r
+    elif Path(src).is_dir():
+        yield from sorted(str(p) for p in Path(src).rglob("*.wav"))
+    else:
+        yield src
+
+
+def _load_audio(path: str):
+    """(float32 mono audio in [-1, 1), sample rate) of a 16-bit wav."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head[:3] == b"ID3" or path.lower().endswith(".mp3"):
+        raise NotImplementedError(
+            f"{path}: mp3 decoding is not ported yet (ROADMAP.md, queue 1, "
+            "training slice)")
+    with wave.open(path) as w:
+        sr = w.getframerate()
+        raw = w.readframes(w.getnframes())
+        audio = np.frombuffer(raw, np.int16).astype(np.float32) / 32768.0
+        if w.getnchannels() > 1:
+            audio = audio.reshape(-1, w.getnchannels())[:, 0]
+    return audio, sr
+
+
+def individual_file_opener(data: Iterable[dict]) -> Iterator[dict]:
+    """Read wav + sidecars per item; unreadable items are skipped and
+    logged."""
+    for sample in data:
+        for wav_path in _expand_src(str(sample["src"])):
+            item = {**sample, "src": wav_path}
+            try:
+                audio, sr = _load_audio(wav_path)
+            except (OSError, EOFError, wave.Error) as e:
+                print(f"opener skip {wav_path}: {e}")
+                continue
+            item["audio"] = audio
+            item["sample_rate"] = sr
+            yield from attach_sidecars(item)
+
+
+def tokenize(data, tokenizer) -> Iterator[dict]:
+    for s in data:
+        s["text_token"] = np.asarray(tokenizer.encode(s["text"]), np.int32)
+        yield s
+
+
+def filter_lengths(data, max_length: int = 40960, min_length: int = 100,
+                   token_max_length: int = 200, token_min_length: int = 1
+                   ) -> Iterator[dict]:
+    """Length gates in 10 ms frames and text tokens."""
+    for s in data:
+        frames = len(s["audio"]) / s["sample_rate"] * 100
+        if not (min_length < frames < max_length):
+            continue
+        if "text_token" in s and not (
+                token_min_length <= len(s["text_token"]) <= token_max_length):
+            continue
+        if len(s.get("speech_token", ())) == 0:
+            continue
+        yield s
+
+
+def resample(data, target_sr: int = 24000) -> Iterator[dict]:
+    """Linear resample, and peak normalization above 1."""
+    for s in data:
+        sr = s["sample_rate"]
+        if sr != target_sr:
+            n_out = int(round(len(s["audio"]) * target_sr / sr))
+            x_old = np.linspace(0.0, 1.0, len(s["audio"]), endpoint=False)
+            x_new = np.linspace(0.0, 1.0, n_out, endpoint=False)
+            s["audio"] = np.interp(x_new, x_old, s["audio"]).astype(np.float32)
+            s["sample_rate"] = target_sr
+        peak = np.abs(s["audio"]).max() if len(s["audio"]) else 0.0
+        if peak > 1.0:
+            s["audio"] = s["audio"] / peak * 0.9
+        yield s
+
+
+def extract_reference_mel(data, sample_rate: int = 24000,
+                          min_length: float = 0.5, max_length: float = 4.0,
+                          num_crops: int = 1) -> Iterator[dict]:
+    """Random crops -> (T, 80) mels for the speaker encoder."""
+    for s in data:
+        a = s["audio"]
+        crops = []
+        for _ in range(num_crops):
+            dur = random.uniform(min_length, max_length)
+            n = min(int(dur * sample_rate), len(a))
+            start = random.randint(0, max(len(a) - n, 0))
+            m = mel_ops.hifigan_log_mel_np(a[start: start + n]).T
+            crops.append(m.astype(np.float32))
+        s["reference_mels"] = crops
+        yield s
+
+
+def shuffle(data, shuffle_size: int = 1000) -> Iterator[dict]:
+    buf = []
+    for s in data:
+        buf.append(s)
+        if len(buf) >= shuffle_size:
+            random.shuffle(buf)
+            yield from buf
+            buf = []
+    random.shuffle(buf)
+    yield from buf
+
+
+def _len_of(s):
+    return len(s["speech_latent"])
+
+
+def sort_by_len(data, sort_size: int = 500) -> Iterator[dict]:
+    buf = []
+    for s in data:
+        buf.append(s)
+        if len(buf) >= sort_size:
+            buf.sort(key=_len_of)
+            yield from buf
+            buf = []
+    buf.sort(key=_len_of)
+    yield from buf
+
+
+def dynamic_batch(data, max_frames_in_batch: int = 25000) -> Iterator[list]:
+    """Frame-budget batching: longest latent * count stays within the
+    budget."""
+    buf, longest = [], 0
+    for s in data:
+        n = _len_of(s)
+        if buf and (max(longest, n) * (len(buf) + 1)) > max_frames_in_batch:
+            yield buf
+            buf, longest = [], 0
+        buf.append(s)
+        longest = max(longest, n)
+    if buf:
+        yield buf
+
+
+def _bucket(n: int, multiple: int = 64) -> int:
+    return max(((n + multiple - 1) // multiple) * multiple, multiple)
+
+
+def _pad_reference_mels(batch, bucket_multiple: int) -> dict:
+    rl = np.array([s["reference_mels"][0].shape[0] for s in batch], np.int32)
+    ref = np.zeros((len(batch), _bucket(int(rl.max()), bucket_multiple), 80),
+                   np.float32)
+    for i, s in enumerate(batch):
+        ref[i, : rl[i]] = s["reference_mels"][0]
+    return {"reference_mel": ref, "reference_mel_len": rl}
+
+
+def padding_llm(batches, mix_ratio=(5, 15), use_spk: bool = True,
+                bucket_multiple: int = 64, bistream_prob: float = 0.5,
+                eos: int = 6561, fill: int = 6563) -> Iterator[dict]:
+    """Stage-1 LM batch: the fixed-shape interleave plan (models/llm.py
+    build_lm_plan) padded to a multiple of `bucket_multiple`, plus the
+    reference mels padded to a multiple of 32."""
+    for batch in batches:
+        flags = [random.random() < bistream_prob for _ in batch]
+
+        def plan_for(pad_to=None):
+            return llm_mod.build_lm_plan(
+                [s["text_token"] for s in batch],
+                [s["speech_token"] for s in batch], mix_ratio=mix_ratio,
+                use_spk=use_spk, bistream_flags=flags, pad_to=pad_to, eos=eos,
+                fill=fill)
+
+        longest = int(plan_for()["seq_len"].max())
+        out = plan_for(_bucket(longest, bucket_multiple))
+        if "reference_mels" in batch[0]:
+            out.update(_pad_reference_mels(batch, 32))
+        yield out
+
+
+def prefetch(batches: Iterable, depth: int = 2) -> Iterator:
+    """Prepare up to `depth` batches ahead in a background thread (the
+    wav reads and mels overlap the device's steps). Exceptions re-raise
+    at the consumer; closing the generator stops the producer."""
+    if depth <= 0:
+        yield from batches
+        return
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for b in batches:
+                if not put(b):
+                    return
+            put(end)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            put(e)
+
+    t = threading.Thread(target=worker, daemon=True, name="batch-prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=5.0)
+
+
+def build_dataset(source: Iterable[dict], stages: list[Callable]
+                  ) -> Iterator:
+    """Chain the stages over the source."""
+    it = iter(source)
+    for stage in stages:
+        it = stage(it)
+    return it

@@ -49,7 +49,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, T, D) in q's dtype. Query rows that see no key are undefined.
 
     CUDA tensors go to the kernel (float32 or bfloat16, contiguous,
-    D == 64) or raise; CPU tensors go to `reference_attention`."""
+    D == 64) or raise; CPU tensors go to `reference_attention`. The
+    kernel is forward-only: on CUDA, an input that requires grad under
+    grad mode raises (kernels/splash.py, K2, is the differentiable
+    route)."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share a (B, H, T, D) shape: "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
@@ -65,6 +68,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    causal)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "the K1 flash_attention kernel has no backward pass; under grad "
+            "use kernels.splash.splash_chunk_attention (K2), which is "
+            "differentiable")
     if d != HEAD_DIM:
         raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, got {d}")
     if q.dtype not in _DTYPES:

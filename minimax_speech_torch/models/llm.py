@@ -1,10 +1,12 @@
 """Stage-1 TTS LM: text tokens (+ speaker conditioning) -> FSQ speech tokens.
 
-Port of the inference half of minimax_speech_tpu/models/llm.py: the
-plan embedding (a host-built integer plan of source type + token id per
-position, materialized with three gathers and a select), speaker
-conditioning, prefill into a preallocated KV cache, and the RAS decode
-loop of `generate` with pregenerated noise.
+Port of minimax_speech_tpu/models/llm.py: the plan embedding (a
+host-built integer plan of source type + token id per position,
+materialized with three gathers and a select), speaker conditioning
+(multi-crop averaged, or an external x-vector), the training forward
+(label-smoothed CE and accuracy over the plan's targets) with the host
+plan builder `build_lm_plan`, prefill into a preallocated KV cache, and
+the RAS decode loop of `generate` with pregenerated noise.
 """
 from __future__ import annotations
 
@@ -17,10 +19,13 @@ from torch import nn
 
 from minimax_speech_torch.models import qwen2
 from minimax_speech_torch.models.speaker_encoder import (
-    LearnableSpeakerEncoder, SpeakerEncoderConfig)
+    LearnableSpeakerEncoder, SpeakerEncoderConfig, l2_normalize)
 from minimax_speech_torch.ops import masks as mask_ops
 from minimax_speech_torch.ops import sampling as sampling_ops
+from minimax_speech_torch.utils import losses
 from minimax_speech_torch.utils.device import check_on, resolve_device
+
+IGNORE_ID = losses.IGNORE_ID
 
 # plan source types
 SRC_PAD, SRC_SPECIAL, SRC_TEXT, SRC_SPEECH, SRC_SPK = 0, 1, 2, 3, 4
@@ -49,6 +54,10 @@ class LMConfig:
     @property
     def eos_token(self) -> int:
         return self.speech_token_size
+
+    @property
+    def fill_token(self) -> int:
+        return self.speech_token_size + 2
 
     @property
     def vocab(self) -> int:
@@ -88,9 +97,35 @@ class SpeechLM(nn.Module):
                            emb)
 
     def embed_speaker(self, reference_mel, reference_mask=None):
-        """(B, T, 80) reference mel -> (B, C) projected embedding."""
-        return self.spk_embed_affine_layer(
-            self.speaker_encoder(reference_mel, reference_mask))
+        """(B, T, 80), or multi-crop (B, N, T, 80), reference mel ->
+        (B, C) projected embedding; crops are averaged, then
+        L2-normalized."""
+        if reference_mel.dim() == 4:
+            b, n, t, d = reference_mel.shape
+            mask = None if reference_mask is None \
+                else reference_mask.reshape(b * n, t)
+            e = self.speaker_encoder(reference_mel.reshape(b * n, t, d),
+                                     mask).reshape(b, n, -1).mean(dim=1)
+            e = l2_normalize(e)
+        else:
+            e = self.speaker_encoder(reference_mel, reference_mask)
+        return self.spk_embed_affine_layer(e)
+
+    def project_xvector(self, embedding):
+        """External (B, 192) x-vector -> (B, C)."""
+        return self.spk_embed_affine_layer(l2_normalize(embedding))
+
+    def forward(self, src_type, tok_id, target, seq_len, spk_emb):
+        """Training forward from plan tensors: src_type/tok_id/target
+        (B, L), seq_len (B,), spk_emb (B, C). Returns (loss, accuracy)."""
+        emb = self.embed_plan(src_type, tok_id, spk_emb)
+        b, t = src_type.shape
+        positions = torch.arange(t, device=emb.device)[None].expand(b, t)
+        hidden = self.llm(emb, positions, None, lengths=seq_len)
+        logits = self.llm_decoder(hidden)
+        loss = losses.label_smoothing_ce(logits, target, self.cfg.lsm_weight,
+                                         self.cfg.length_normalized_loss)
+        return loss, losses.accuracy(logits, target)
 
     def prefill(self, emb, pad, positions, cache):
         """Run the prompt through the LM, filling cache slots [0, P).
@@ -114,6 +149,61 @@ class SpeechLM(nn.Module):
 
     def embed_speech_token(self, tok):
         return self.speech_embedding(tok)
+
+
+def build_lm_plan(text_tokens, speech_tokens, mix_ratio=(5, 15),
+                  use_spk: bool = True, bistream_flags=None,
+                  pad_to: Optional[int] = None, eos: int = 6561,
+                  fill: int = 6563):
+    """Fixed-shape training plans for a batch, on the host: dict of numpy
+    src_type, tok_id, target (B, L) and seq_len (B,). Unistream rows are
+    [sos][spk?][text][task][speech] with targets [speech][eos]; a row
+    whose bistream flag is set, and whose speech/text ratio exceeds
+    mix_ratio[1]/mix_ratio[0], interleaves mix_ratio[0] text tokens with
+    mix_ratio[1] speech tokens, each full chunk's last target `fill`."""
+    n_text, n_speech = mix_ratio
+    rows = []
+    for i in range(len(text_tokens)):
+        tt = list(map(int, text_tokens[i]))
+        st = list(map(int, speech_tokens[i]))
+        bistream = bistream_flags is not None and bool(bistream_flags[i]) \
+            and len(st) / max(len(tt), 1) > n_speech / n_text
+        src, tok, tgt = [SRC_SPECIAL], [SOS_EOS_ID], [IGNORE_ID]
+        if use_spk:
+            src.append(SRC_SPK)
+            tok.append(0)
+            tgt.append(IGNORE_ID)
+        if bistream:
+            for j in range(int(np.ceil((len(tt) + 1) / n_text))):
+                tc = tt[j * n_text:(j + 1) * n_text]
+                sc = st[j * n_speech:(j + 1) * n_speech]
+                if len(tc) == n_text:
+                    src += [SRC_TEXT] * n_text + [SRC_SPEECH] * len(sc)
+                    tok += tc + sc
+                    tgt += [IGNORE_ID] * (n_text - 1) + sc + [fill]
+                else:
+                    rest = st[j * n_speech:]
+                    src += [SRC_TEXT] * len(tc) + [SRC_SPECIAL] \
+                        + [SRC_SPEECH] * len(rest)
+                    tok += tc + [TASK_ID] + rest
+                    tgt += [IGNORE_ID] * len(tc) + rest + [eos]
+        else:
+            src += [SRC_TEXT] * len(tt) + [SRC_SPECIAL] \
+                + [SRC_SPEECH] * len(st)
+            tok += tt + [TASK_ID] + st
+            tgt += [IGNORE_ID] * len(tt) + st + [eos]
+        rows.append((src, tok, tgt))
+    seq_len = np.array([len(r[0]) for r in rows], np.int32)
+    n = pad_to or int(seq_len.max())
+    src_type = np.zeros((len(rows), n), np.int32)
+    tok_id = np.zeros((len(rows), n), np.int32)
+    target = np.full((len(rows), n), IGNORE_ID, np.int32)
+    for i, (src, tok, tgt) in enumerate(rows):
+        src_type[i, : len(src)] = src
+        tok_id[i, : len(tok)] = tok
+        target[i, : len(tgt)] = tgt
+    return dict(src_type=src_type, tok_id=tok_id, target=target,
+                seq_len=seq_len)
 
 
 def build_inference_plan(text_tokens: np.ndarray, prompt_speech: np.ndarray,

@@ -1,10 +1,14 @@
 """Qwen2 decoder-only backbone (the stage-1 LM body).
 
-Port of minimax_speech_tpu/models/qwen2.py, inference path in fp32 or
-bf16. The KV cache is a preallocated (n_layers, B, max_len, n_kv,
-head_dim) pair written in place at a slot offset; RoPE is applied at
-write time with each token's true position, so storage slots and
-positions decouple and padded prompts need no re-packing.
+Port of minimax_speech_tpu/models/qwen2.py in fp32 or bf16. Inference:
+the KV cache is a preallocated (n_layers, B, max_len, n_kv, head_dim)
+pair written in place at a slot offset; RoPE is applied at write time
+with each token's true position, so storage slots and positions
+decouple and padded prompts need no re-packing. Training (no cache,
+`lengths` given, no bias): every attention call goes through K2
+(kernels/splash.py), causal with segment padding, at any T; on the CPU
+through K2's plain version. Valid rows see what the JAX package's XLA
+route shows them; pad rows see only pads, which no loss reads.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from minimax_speech_torch.kernels import splash
 from minimax_speech_torch.ops import rope as rope_ops
 
 
@@ -30,11 +35,17 @@ class Qwen2Config:
     rope_theta: float = 1e6
     rms_eps: float = 1e-6
     quantized: bool = False  # W8A8 projections: not ported yet
+    remat: bool = False      # per-layer activation checkpointing: not yet
+    remat_policy: str = "dots"
 
     def __post_init__(self):
         if self.quantized:
             raise NotImplementedError(
                 "quantized (W8A8) Qwen2 projections are not ported yet")
+        if self.remat or self.remat_policy != "dots":
+            raise NotImplementedError(
+                "Qwen2Config.remat / remat_policy (per-layer checkpointing) "
+                "is not ported yet: ROADMAP.md, queue 1, training slice")
 
 
 class RMSNorm(nn.Module):
@@ -64,11 +75,13 @@ class Qwen2Attention(nn.Module):
         self.v_proj = nn.Linear(c, kvh * d)
         self.o_proj = nn.Linear(h * d, c, bias=False)
 
-    def forward(self, x, positions, attn_bias, cache=None, cache_offset=0):
+    def forward(self, x, positions, attn_bias, cache=None, cache_offset=0,
+                lengths=None):
         """x: (B, T, C); positions: (B, T) true token positions;
         attn_bias: (B, 1, T, K) additive, float32; cache: optional (k, v)
         each (B, max_len, n_kv, d) for this layer, written in place at
-        slots [cache_offset, cache_offset + T)."""
+        slots [cache_offset, cache_offset + T). With attn_bias None,
+        `lengths` (B,) selects the training attention (K2)."""
         c = self.cfg
         b, t, _ = x.shape
         h, kvh, d = c.n_heads, c.n_kv_heads, c.head_dim
@@ -95,6 +108,11 @@ class Qwen2Attention(nn.Module):
         rep = h // kvh
         keys = keys.repeat_interleave(rep, dim=2)
         values = values.repeat_interleave(rep, dim=2)
+        if attn_bias is None:
+            o = splash.splash_causal_attention(
+                q.transpose(1, 2), keys.transpose(1, 2),
+                values.transpose(1, 2), lengths, scale=1.0 / math.sqrt(d))
+            return self.o_proj(o.transpose(1, 2).reshape(b, t, h * d))
         scores = torch.einsum("bqhd,bkhd->bhqk", q, keys) / math.sqrt(d)
         w = torch.softmax(scores.float() + attn_bias, dim=-1).to(x.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", w, values).reshape(b, t, h * d)
@@ -121,9 +139,10 @@ class Qwen2Layer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps)
         self.mlp = Qwen2MLP(cfg)
 
-    def forward(self, x, positions, attn_bias, cache=None, cache_offset=0):
+    def forward(self, x, positions, attn_bias, cache=None, cache_offset=0,
+                lengths=None):
         x = x + self.self_attn(self.input_layernorm(x), positions, attn_bias,
-                               cache, cache_offset)
+                               cache, cache_offset, lengths)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -142,13 +161,18 @@ class Qwen2Model(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps)
 
     def forward(self, inputs_embeds, positions, attn_bias, cache=None,
-                cache_offset=0):
+                cache_offset=0, lengths=None):
         """cache: optional (k, v) each (n_layers, B, max_len, n_kv, d),
-        updated in place. Returns the normed hidden states (B, T, C)."""
+        updated in place. attn_bias None selects the training path: no
+        cache, `lengths` (B,) the true lengths, causal attention through
+        K2. Returns the normed hidden states (B, T, C)."""
+        if attn_bias is None and (lengths is None or cache is not None):
+            raise ValueError("need attn_bias, or lengths without a cache")
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             layer_cache = None if cache is None else (cache[0][i], cache[1][i])
-            x = layer(x, positions, attn_bias, layer_cache, cache_offset)
+            x = layer(x, positions, attn_bias, layer_cache, cache_offset,
+                      lengths)
         return self.norm(x)
 
 

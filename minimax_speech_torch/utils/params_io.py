@@ -68,6 +68,13 @@ def _params_with_paths(module: nn.Module):
             yield prefix + (leaf,), p, to_torch, to_flax
 
 
+def named_flax_params(module: nn.Module):
+    """(flax path joined by '/', parameter) for every parameter, in
+    module order: the names the JAX package's grad pytree carries."""
+    return [("/".join(path), p)
+            for path, p, _, _ in _params_with_paths(module)]
+
+
 def _flatten(tree: dict, prefix=()) -> dict:
     out = {}
     for k, v in tree.items():

@@ -113,3 +113,27 @@ def test_kernel_matches_plain_on_card(dtype, mode, t, kv_len):
         torch.testing.assert_close(out[i, :, :n].float(),
                                    ref[i, :, :n].float(), atol=atol,
                                    rtol=rtol)
+
+
+def test_plain_differentiates_on_cpu(rng):
+    """CPU tensors that require grad go through the plain version, which
+    autograd differentiates (the kernel, forward-only, refuses them)."""
+    q, k, v = (torch.tensor(a, requires_grad=True)
+               for a in _qkv(rng, 1, 2, 20, 8))
+    out = t_fa.flash_attention(q, k, v, kv_len=torch.tensor([13]),
+                               causal=True)
+    grads = torch.autograd.grad(out[:, :, :13].square().sum(), (q, k, v))
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_grad_on_card():
+    """On CUDA, an input that requires grad under grad mode raises and
+    names K2; under no_grad the same call launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (torch.randn((1, 2, 70, 64), device="cuda") for _ in range(3))
+    with pytest.raises(RuntimeError, match="K2"):
+        t_fa.flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        assert t_fa.flash_attention(q, k, v).shape == q.shape

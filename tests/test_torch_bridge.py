@@ -143,7 +143,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'minimax_speech_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'minimax_speech_tpu')]\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -137,8 +137,12 @@ def test_chip_smoke_imports_no_jax():
     code = (
         "import sys; sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
+        "import minimax_speech_torch.cli.train, "
+        "minimax_speech_torch.kernels.splash, "
+        "minimax_speech_torch.train.steps\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'minimax_speech_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'minimax_speech_tpu')]\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
