@@ -7,155 +7,100 @@
 //   k <= q                                         (causal)
 //   k < (q / chunk + 1) * chunk                    (chunk > 0)
 //   k >= (q / chunk - left_chunks) * chunk         (chunk > 0, left_chunks >= 0)
-// which is one interval [lo(q), hi(q)) of keys per query row.
+// which is one interval [lo(q), hi(q)) of keys per query row (K1Mask below).
 //
 // What bounds it on an H100: at the flow UNet's shape (B=2, H=8, T=506,
 // D=64, kv_len=400) one call reads 3 x 2 x 8 x 506 x 64 fp32 values and
-// writes one such tensor (8.3 MB, about 2.5 us at 3.35 TB/s) and does
-// 4 x 2 x 8 x 506 x 400 x 64 = 0.83 GFLOP (about 12 us on the 67 TFLOP/s
-// fp32 pipes, 0.8 us on the bf16 tensor cores), so the arithmetic bounds it.
+// writes one such tensor (8.3 MB, 2.5 us at 3.35 TB/s) and does
+// 4 x 2 x 8 x 506 x 400 x 64 = 0.83 GFLOP. At fp32 accuracy on the tensor
+// cores (3 TF32 products per fp32 product, 494.7 TFLOP/s dense) that is
+// 5.0 us, so the arithmetic bounds it: 0.0050 ms. Measured, the issue
+// rate of mma.sync's TF32 products limits it (kernels/variants.py,
+// PERF.md); wgmma is the next step.
 //
-// Design (this version is right and simple; tensor cores come later):
-//   * one thread block per (b*h, 64-row query tile); two threads per query
-//     row, each owning 32 of the 64 dims (interleaved, even/odd, so the two
-//     halves of a warp read different shared-memory banks);
-//   * the query row stays in registers; K and V tiles of 64 rows are staged
-//     through shared memory as fp32 (fp32 and bf16 inputs, fp32 math, the
-//     output in the input's type);
-//   * the key loop runs only over the tiles the tile's interval can reach
-//     ([lo(q_first), hi(q_last))), so masked-out tiles cost nothing, and
-//     boundary tiles are masked element by element with the row's interval;
-//   * ragged T needs no divisibility rule: rows >= T are not stored and keys
-//     >= T are outside every interval.
-// No wgmma or TMA yet: the scores and P*V products run on the fp32 pipes.
+// Design: the products run on the tensor cores (mma.sync m16n8k8, TF32 in
+// 3xTF32 for fp32 accuracy) and K and V tiles stream in by cp.async,
+// double-buffered; the shared code is attention_mma.cuh (its note says
+// how fragments, splits and shared-memory layout work). The UNet's shape
+// has only 16 (b, h) x 8 query tiles, so each block of 8 warps splits its
+// tile's key range in two: 4 warps (16 query rows each) take the even key
+// tiles, 4 the odd ones, and their (m, l, O) are combined at the end, which
+// gives each SM 8 warps. A block visits only the key tiles its rows' intervals
+// reach, a warp computes only those its own rows reach, and boundary tiles
+// are masked per element on the fragments. Any T works: rows and keys past
+// T are zero-filled and never visible. bf16 inputs stay bf16 in shared
+// memory and are converted at the fragment load; the output is written in
+// the input's type.
+//
+// It replaces the first design (two threads per query row, 64 rows per
+// 4-warp block, every FMA on the fp32 pipes reading shared memory, 231
+// registers a thread): 0.2327 ms against SDPA's 0.1048 ms at the shape above
+// (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 3, PERF.md).
 
 #include <cmath>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kD = 64;                  // head dim this kernel takes
-constexpr int kBlockQ = 64;             // query rows per block
-constexpr int kBlockK = 64;             // key rows per shared-memory tile
-constexpr int kThreads = 2 * kBlockQ;   // two threads per query row
-constexpr int kHalf = kD / 2;           // dims owned by one thread
-constexpr float kNegInf = -1e30f;
+using attn::kD;
+using attn::kGroupThreads;
+using attn::kTile;
+using attn::Tile;
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+constexpr int kSplit = 2;  // key groups per block
+constexpr int kThreads = kSplit * kGroupThreads;
+
+// K1's rule: the keys row q sees are [lo, hi)
+struct K1Mask {
+  int len, chunk, left, causal;
+  __device__ __forceinline__ void row_span(int q, int& lo, int& hi) const {
+    lo = 0;
+    hi = len;
+    if (causal) hi = min(hi, q + 1);
+    if (chunk > 0) {
+      hi = min(hi, (q / chunk + 1) * chunk);
+      if (left >= 0) lo = max(0, (q / chunk - left) * chunk);
+    }
+  }
+};
+
+template <typename T>
+constexpr size_t smem_bytes() {
+  return attn::forward_tiles(kSplit) * Tile<T>::kElems * sizeof(T);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const int* __restrict__ kv_len,
          T* __restrict__ out, int heads, int seq, int chunk, int left_chunks,
          int causal, float scale) {
-  __shared__ float ks[kBlockK][kD];
-  __shared__ float vs[kBlockK][kD];
-
+  extern __shared__ __align__(16) unsigned char smem[];
   const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int q_first = blockIdx.x * kBlockQ;
-  const int q_last = min(q_first + kBlockQ, seq) - 1;
-  const int row = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;  // this thread owns dims 2*i + half
-  const int qi = q_first + row;
-  const bool row_ok = qi < seq;
   const size_t base = static_cast<size_t>(bh) * seq * kD;
+  const K1Mask mask{max(0, min(kv_len[bh / heads], seq)), chunk, left_chunks,
+                    causal};
+  attn::attention_forward<T, kSplit>(q + base, k + base, v + base, out + base,
+                                     nullptr, mask, seq, blockIdx.x * kTile,
+                                     scale, reinterpret_cast<T*>(smem));
+}
 
-  const int len = min(kv_len[b], seq);
-  // keys any row of the tile can see: [tile_lo, tile_hi)
-  int tile_lo = 0, tile_hi = len;
-  // keys this row can see: [row_lo, row_hi)
-  int row_lo = 0, row_hi = len;
-  if (causal) {
-    tile_hi = min(tile_hi, q_last + 1);
-    row_hi = min(row_hi, qi + 1);
-  }
-  if (chunk > 0) {
-    tile_hi = min(tile_hi, (q_last / chunk + 1) * chunk);
-    row_hi = min(row_hi, (qi / chunk + 1) * chunk);
-    if (left_chunks >= 0) {
-      tile_lo = max(0, (q_first / chunk - left_chunks) * chunk);
-      row_lo = max(0, (qi / chunk - left_chunks) * chunk);
-    }
-  }
-
-  float qr[kHalf];
-  float acc[kHalf];
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    qr[i] = row_ok ? load_f(q + base + static_cast<size_t>(qi) * kD + 2 * i + half)
-                   : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  for (int k0 = (tile_lo / kBlockK) * kBlockK; k0 < tile_hi; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kBlockK * kD; i += kThreads) {
-      const int r = i / kD;
-      const int c = i % kD;
-      const int kr = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kr < seq) {
-        const size_t off = base + static_cast<size_t>(kr) * kD + c;
-        kx = load_f(k + off);
-        vx = load_f(v + off);
-      }
-      ks[r][c] = kx;
-      vs[r][c] = vx;
-    }
-    __syncthreads();
-
-    float s[kBlockK];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) dot += qr[i] * ks[j][2 * i + half];
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      const int kj = k0 + j;
-      s[j] = (kj >= row_lo && kj < row_hi) ? dot * scale : kNegInf;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const int kj = k0 + j;
-      const float p = (kj >= row_lo && kj < row_hi) ? expf(s[j] - m_new) : 0.f;
-      s[j] = p;
-      p_sum += p;
-    }
-    l = l * alpha + p_sum;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) acc[i] += s[j] * vs[j][2 * i + half];
-    }
-    m = m_new;
-  }
-
-  if (row_ok) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* o = out + base + static_cast<size_t>(qi) * kD + half;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) store_f(o + 2 * i, acc[i] * inv);
-  }
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* kv_len, void* out, int batch, int heads, int seq,
+                   int chunk, int left_chunks, int causal, float scale,
+                   cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<T>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
+  attn_fwd<T><<<grid, kThreads, smem_bytes<T>(), s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_len, static_cast<T*>(out), heads, seq,
+      chunk, left_chunks, causal, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -173,21 +118,13 @@ extern "C" int mmst_flash_attention_fwd(const void* q, const void* k,
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
   const float scale = 1.0f / sqrtf(static_cast<float>(head_dim));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    attn_fwd<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), kv_len,
-        static_cast<__nv_bfloat16*>(out), heads, seq, chunk, left_chunks,
-        causal, scale);
-  } else {
-    attn_fwd<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), kv_len, static_cast<float*>(out), heads,
-        seq, chunk, left_chunks, causal, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype == 1 ? launch<__nv_bfloat16>(q, k, v, kv_len, out, batch, heads,
+                                         seq, chunk, left_chunks, causal,
+                                         scale, s)
+                 : launch<float>(q, k, v, kv_len, out, batch, heads, seq,
+                                 chunk, left_chunks, causal, scale, s);
+  return static_cast<int>(err);
 }

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc,
 by hand, for sm_90a into ``build/kernels/lib<name>-<hash>.so`` inside
-the checkout (the hash is the source's, so an edited source rebuilds),
+the checkout (the hash covers the source and the csrc/*.cuh headers,
+so an edited source or header rebuilds),
 then loaded with ctypes. Nothing here runs at import time: the first
 launch builds, or a caller builds ahead with :func:`build`, which starts
 one nvcc per source, all at once.
@@ -39,9 +40,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of csrc/<name>.cu, named by a hash of the source, every
+    csrc/*.cuh header (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> float:

@@ -29,3 +29,30 @@ def check_on(module: torch.nn.Module, device: torch.device, what: str):
     if have.type != device.type or (device.index is not None
                                     and have.index != device.index):
         raise ValueError(f"{what} lives on {have}, the call asks for {device}")
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time in ms of one fn() call on the current CUDA device:
+    `calls` calls captured in one CUDA graph, replayed `replays` times
+    between CUDA events, so the host's time between launches (the
+    kernels' Python wrappers take about as long as the kernels) drops
+    out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as required
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)

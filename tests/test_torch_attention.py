@@ -95,7 +95,8 @@ def test_wrapper_rejects_bad_inputs(rng):
 def test_kernel_matches_plain_on_card(dtype, mode, t, kv_len):
     """The CUDA kernel against the plain version on the card, valid rows.
     float32: 1e-5 (same math, other summation order; TF32 off). bf16:
-    2e-2 plus one bf16 ulp of the value (both round an fp32 result)."""
+    one bf16 ulp of the value (both round an fp32 result) plus 1e-5 for
+    fp32 noise on elements near zero, chip_smoke.py's limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,7 +109,7 @@ def test_kernel_matches_plain_on_card(dtype, mode, t, kv_len):
     torch.cuda.synchronize()
     assert t_fa.launches == before + 1
     ref = t_fa.reference_attention(q, k, v, lens, **MODES[mode])
-    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (2e-2, 2 ** -7)
+    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2 ** -7)
     for i, n in enumerate(kv_len):
         torch.testing.assert_close(out[i, :, :n].float(),
                                    ref[i, :, :n].float(), atol=atol,
