@@ -21,11 +21,15 @@ a line; any failure ends the run with a non-zero exit:
   4. the main path at the full width of configs/default.yaml with
      random weights (seed 0): zero-shot synthesis through TTSPipeline's
      entry points, as bench.py drives the JAX package (3 s prompt, 12
-     text tokens, 125 generated tokens, LM in bf16, flow and codec in
-     fp32), with K1's launches counted per utterance;
+     text tokens, 125 generated tokens, LM in bf16 with W8A8 projections
+     and random int8 kernels, flow and codec in fp32), with K1's
+     launches counted per utterance;
   5. the same synthesis at reduced depth on the card and on the CPU with
-     the same weights and noise: identical token ids, PCM within a
-     stated tolerance;
+     the same weights and noise, the LM in float32: identical token ids,
+     PCM within a stated tolerance; then the W8A8 LM (bench.py's random
+     int8 kernels, float32 activations): every QuantDense call of the
+     CPU's decode replayed on the card, bit-identical, and the decode on
+     both giving identical token ids;
   6. K2 (csrc/splash_attention.cu) against its plain PyTorch version on
      the card: forward output and dq, dk, dv, in every mask mode, fp32
      and bf16, at the LM training shape (8, 14, 512, 64) with the
@@ -43,7 +47,22 @@ a line; any failure ends the run with a non-zero exit:
      call that resumes at the saved step;
   9. LM training at reduced depth (2 layers) on the card and on the CPU
      with the same weights and batch: loss, accuracy, grad norm and the
-     parameters after 3 steps within stated tolerances.
+     parameters after 3 steps within stated tolerances;
+ 10. the LM's int8 product (torch._int_mm, rows padded past 16) for each
+     projection shape at M=1 and M=128: the int32 accumulator equals the
+     CPU's exactly; its time beside a bf16 matmul of the same shape;
+ 11. the synthesis CLI's paths at full width with phase 4's LM, K1's
+     count set to 0 before each and read after: the unfused
+     `synthesize`, a chunked StreamingSession (a warm-up utterance, then
+     a timed one: time to first chunk, total, chunks, audio, K1 launches
+     in the prefill and per hop) and a non-chunked one (K1's chunk-50
+     mode per hop); then K1, its plain version and SDPA timed at the
+     streaming prefill's shape and at the largest chunk-50 hop's;
+ 12. streaming at reduced depth: the card's chunked session against its
+     own unit-grid pass (flow_inference_unit_grid) within the JAX test's
+     limit, and the streamed PCM of the card against the CPU's;
+ 13. cli/synthesize.main at full width, unfused and --stream, each
+     writing a wav.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -237,10 +256,8 @@ def k1_checks(main_shape, kv_main):
     """Phase 3: K1 against its plain version; returns the record of K1
     (timings at the main-path shape)."""
     import torch
-    import torch.nn.functional as F
 
     from minimax_speech_torch.kernels import flash_attention as fa
-    from minimax_speech_torch.utils.device import graph_ms
 
     b, h, t, d = main_shape
     cases = [(main_shape, kv_main), ((b, h, 77, d), (77, 40))]
@@ -284,38 +301,60 @@ def k1_checks(main_shape, kv_main):
     if failed:
         raise AssertionError(f"K1 disagrees: {failed}")
 
-    # timings at the main-path shape and dtype (fp32, full mask)
-    q, k, v = (torch.randn(main_shape, generator=gen, device="cuda")
-               for _ in range(3))
-    lens = torch.tensor(kv_main, device="cuda", dtype=torch.int32)
-    mask = fa.visible_mask(t, lens, batch=b, device="cuda")
-    before = fa.launches
-    kernel = lambda: fa.flash_attention(q, k, v, kv_len=lens)  # noqa: E731
-    kernel_ms, call_ms = graph_ms(kernel), cuda_ms(kernel)
-    fa.launches = before  # timing launches are not main-path launches
-    plain_ms = graph_ms(lambda: fa.reference_attention(q, k, v, lens))
-    sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask))
-    n_bytes = 4 * q.numel() * q.element_size() + lens.numel() * 4
-    flops = 4 * h * t * d * sum(kv_main)
-    bd = bounds(n_bytes, flops)
-    log(f"[k1] main-path shape {tuple(main_shape)} kv={list(kv_main)} fp32, "
-        f"CUDA-graph replays: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms (kernel/sdpa "
-        f"{kernel_ms / sdpa_ms:.3f}); one eager wrapper call {call_ms:.4f} "
-        f"ms; "
-        f"bound {bd['bound_ms']:.4f} ms ({n_bytes} B -> "
-        f"{bd['bytes_ms']:.4f} ms; {flops} FLOP in 3xTF32 -> "
-        f"{bd['tc_ms']:.4f} ms), fp32 SIMT bound "
-        f"{bd['bound_fp32_simt_ms']:.4f} ms")
+    rec = k1_timing(gen, main_shape, kv_main)
     return {"name": "flash_attention", "route": "cuda",
             "source": "minimax_speech_torch/csrc/flash_attention.cu",
             "replaces": "minimax_speech_tpu/kernels/flash_attention.py:114",
-            "max_abs_err": main_err, "ms": kernel_ms, "call_ms": call_ms,
-            "plain_ms": plain_ms,
+            "max_abs_err": main_err, **rec}
+
+
+def k1_timing(gen, shape, kv, chunk: int = 0) -> dict:
+    """K1, its plain version and torch's SDPA with the same boolean mask
+    at one shape, fp32, as CUDA-graph replays, and one eager wrapper call;
+    the kernel's error against the plain version; the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from minimax_speech_torch.kernels import flash_attention as fa
+    from minimax_speech_torch.utils.device import graph_ms
+
+    b, h, t, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    lens = torch.tensor(kv, device="cuda", dtype=torch.int32)
+    mask = fa.visible_mask(t, lens, chunk=chunk, batch=b, device="cuda")
+    before = fa.launches
+    kernel = lambda: fa.flash_attention(q, k, v, kv_len=lens,  # noqa: E731
+                                        chunk=chunk)
+    ref = fa.reference_attention(q, k, v, lens, chunk)
+    diff = (kernel() - ref).abs()
+    err = float(diff.max())
+    atol, rtol = TOL["float32"]
+    need = max(0.0, float((diff - rtol * ref.abs()).max()))
+    kernel_ms, call_ms = graph_ms(kernel), cuda_ms(kernel)
+    fa.launches = before  # timing launches are not main-path launches
+    plain_ms = graph_ms(lambda: fa.reference_attention(q, k, v, lens, chunk))
+    sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+    n_bytes = 4 * q.numel() * q.element_size() + lens.numel() * 4
+    flops = 4 * d * int(mask.sum()) * h  # QK^T and PV over visible pairs
+    bd = bounds(n_bytes, flops)
+    log(f"[k1] shape {tuple(shape)} kv={list(kv)} chunk {chunk} fp32, "
+        f"CUDA-graph replays: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms (kernel/sdpa "
+        f"{kernel_ms / sdpa_ms:.3f}); one eager wrapper call {call_ms:.4f} "
+        f"ms; max |kernel - plain| {err:.2e} (need_atol {need:.1e}, tol "
+        f"{atol:g}+{rtol:g}*|ref|); bound {bd['bound_ms']:.4f} ms "
+        f"({n_bytes} B -> {bd['bytes_ms']:.4f} ms; {flops} FLOP in 3xTF32 "
+        f"-> {bd['tc_ms']:.4f} ms), fp32 SIMT bound "
+        f"{bd['bound_fp32_simt_ms']:.4f} ms")
+    if need > atol:
+        raise AssertionError(f"K1 at {shape} chunk {chunk}: error {err}")
+    return {"ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
             "bound_fp32_simt_ms": bd["bound_fp32_simt_ms"],
-            "library_ms": sdpa_ms}
+            "library_ms": sdpa_ms, "shape": list(shape), "kv_len": list(kv),
+            "chunk": chunk, "max_abs_err_at_shape": err}
 
 
 def main_path(pipe, inputs, runs: int, card: str, generator_device: str):
@@ -342,7 +381,7 @@ def main_path(pipe, inputs, runs: int, card: str, generator_device: str):
     first_block = pipe.flow.estimator.down[0][1][0]
     hook = first_block.register_forward_pre_hook(
         lambda mod, args: seen.update(bt=tuple(args[0].shape[:2]),
-                                      kv=args[1].tolist()))
+                                      kv=args[1].kv_len.tolist()))
 
     def run(seed):
         gen = torch.Generator(device=generator_device).manual_seed(seed)
@@ -377,31 +416,130 @@ def main_path(pipe, inputs, runs: int, card: str, generator_device: str):
     return per_utt, seen
 
 
-def cross_check(full_cfg, inputs, device="cuda"):
+def w8a8_checks(q, card: str):
+    """Phase 10: the LM's W8A8 projections on the card against the CPU,
+    per projection shape at M=1 (decode) and M=128 (prefill): the int8
+    product (models/qwen2.int8_mm, torch._int_mm on the card) equals the
+    CPU's exact int32 matmul, and a whole QuantDense layer's output equals
+    the CPU's bit for bit in float32 and bf16 on the same input (the
+    same operations on the same values). Times, as CUDA-graph replays:
+    the int8 product beside a bf16 torch.matmul of the same shape, and
+    the bf16 QuantDense layer beside a bf16 nn.Linear."""
+    import copy
+
+    import torch
+
+    from minimax_speech_torch.models import qwen2
+    from minimax_speech_torch.utils.device import graph_ms
+
+    c, i = q.hidden_size, q.intermediate_size
+    hd, kvd = q.n_heads * q.head_dim, q.n_kv_heads * q.head_dim
+    shapes = {"q_proj": (c, hd), "k_proj": (c, kvd), "v_proj": (c, kvd),
+              "o_proj": (hd, c), "gate_proj": (c, i), "up_proj": (c, i),
+              "down_proj": (i, c)}
+    gen = torch.Generator().manual_seed(11)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int16).to(torch.int8)
+
+    bad = []
+    for name, (k, n) in shapes.items():
+        layer = qwen2.QuantDense(k, n, bias=name in ("q_proj", "k_proj",
+                                                     "v_proj"))
+        with torch.no_grad():
+            layer.kernel_q.copy_(int8(n, k))
+            layer.scale.uniform_(0.5 / k, 2.0 / k, generator=gen)
+            if layer.bias is not None:
+                layer.bias.normal_(generator=gen)
+        w, wd = layer.kernel_q, layer.kernel_q.cuda()
+        wb = (w.float() / 127).to(torch.bfloat16).cuda()
+        linear = torch.nn.Linear(k, n, bias=False).cuda().to(torch.bfloat16)
+        for m in (1, 128):
+            x = int8(m, k)
+            xd = x.cuda()
+            same = {"int32": torch.equal(qwen2.int8_mm(xd, wd).cpu(),
+                                         qwen2.int8_mm(x, w))}
+            xf = torch.randn(m, k, generator=gen) * 3.0
+            on_dev = {}
+            for dname, dtype in (("fp32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+                on_cpu = copy.deepcopy(layer).to(dtype)
+                on_dev[dname] = copy.deepcopy(layer).cuda().to(dtype)
+                with torch.no_grad():
+                    same[dname] = torch.equal(
+                        on_dev[dname](xf.to(dtype).cuda()).cpu(),
+                        on_cpu(xf.to(dtype)))
+            bad += [f"{name} M={m} {k_}" for k_, ok in same.items() if not ok]
+            xb = xf.to(torch.bfloat16).cuda()
+            with torch.no_grad():
+                t_int8 = graph_ms(lambda: qwen2.int8_mm(xd, wd))
+                t_bf16 = graph_ms(lambda: torch.matmul(xb, wb.t()))
+                t_layer = graph_ms(lambda: on_dev["bf16"](xb))
+                t_linear = graph_ms(lambda: linear(xb))
+            w_ms = {dt: (n * k * size + m * k * size + m * n * out) /
+                    HBM_BYTES_PER_S * 1e3
+                    for dt, size, out in (("int8", 1, 4), ("bf16", 2, 2))}
+            log(f"[w8a8] {name} (K={k}, N={n}) M={m}: card == CPU, int32 "
+                f"accumulator {same['int32']}, layer fp32 {same['fp32']} "
+                f"bf16 {same['bf16']}; CUDA-graph replays: int8 product "
+                f"{t_int8:.4f} ms (bytes bound {w_ms['int8']:.4f}), bf16 "
+                f"matmul {t_bf16:.4f} ms (bytes bound {w_ms['bf16']:.4f}); "
+                f"QuantDense layer {t_layer:.4f} ms, bf16 Linear "
+                f"{t_linear:.4f} ms")
+    if bad:
+        raise AssertionError(f"W8A8 differs from the CPU: {bad}")
+    log(f"[w8a8] {len(shapes)} shapes x 2 row counts: int32 accumulators "
+        f"and layer outputs identical to the CPU's on {card}")
+
+
+def reduced(cfg):
+    """Phase 5's reduced depth: 2 LM layers, 1 mid UNet block, 1+1
+    encoder blocks, every width as given."""
+    return dataclasses.replace(
+        cfg,
+        lm=dataclasses.replace(cfg.lm, qwen=dataclasses.replace(
+            cfg.lm.qwen, n_layers=2)),
+        flow=dataclasses.replace(
+            cfg.flow,
+            unet=dataclasses.replace(cfg.flow.unet, num_mid_blocks=1),
+            encoder=dataclasses.replace(cfg.flow.encoder, num_blocks=1,
+                                        num_up_blocks=1)))
+
+
+def float_lm(cfg):
+    return dataclasses.replace(cfg, lm=dataclasses.replace(
+        cfg.lm, qwen=dataclasses.replace(cfg.lm.qwen, quantized=False)))
+
+
+def reduced_pipes(full_cfg, inputs, device="cuda"):
+    """The reduced-depth pipelines of phases 5 and 12, float32 with the
+    float LM (the W8A8 LM has its own check, w8a8_cross_check), with the
+    same weights on the CPU and on `device`, and their prompt: (cfg, cpu,
+    dev, prompt tokens, prompt latent, lm_spk, flow_emb)."""
+    from minimax_speech_torch.infer.pipeline import TTSPipeline
+
+    cfg = float_lm(reduced(full_cfg))
+    a16, a24, _, _ = inputs
+    cpu = TTSPipeline.from_random(cfg, seed=5, device="cpu")
+    dev = TTSPipeline(cfg, device=device)
+    for name, m in dev.models().items():
+        m.load_state_dict(cpu.models()[name].state_dict())
+    lm_spk, flow_emb = cpu.speaker_embedding(cpu.extract_prompt_mel(a24))
+    return (cfg, cpu, dev, cpu.extract_prompt_tokens(a16),
+            cpu.extract_prompt_latent(a24), lm_spk, flow_emb)
+
+
+def cross_check(pipes, inputs, device="cuda"):
     """Phase 5: reduced depth, same weights and noise on `device` and on
     the CPU."""
     import torch
 
-    from minimax_speech_torch.infer.pipeline import TTSPipeline, decode_plan
+    from minimax_speech_torch.infer.pipeline import decode_plan
     from minimax_speech_torch.models import llm as llm_mod
 
-    cfg = dataclasses.replace(
-        full_cfg,
-        lm=dataclasses.replace(full_cfg.lm, qwen=dataclasses.replace(
-            full_cfg.lm.qwen, n_layers=2)),
-        flow=dataclasses.replace(
-            full_cfg.flow,
-            unet=dataclasses.replace(full_cfg.flow.unet, num_mid_blocks=1),
-            encoder=dataclasses.replace(full_cfg.flow.encoder, num_blocks=1,
-                                        num_up_blocks=1)))
-    a16, a24, text, ptext = inputs
-    cpu = TTSPipeline.from_random(cfg, seed=5, device="cpu")
-    gpu = TTSPipeline(cfg, device=device)
-    for name, m in gpu.models().items():
-        m.load_state_dict(cpu.models()[name].state_dict())
-    prompt_tokens = cpu.extract_prompt_tokens(a16)
-    prompt_latent = cpu.extract_prompt_latent(a24)
-    lm_spk, flow_emb = cpu.speaker_embedding(cpu.extract_prompt_mel(a24))
+    cfg, cpu, gpu, prompt_tokens, prompt_latent, lm_spk, flow_emb = pipes
+    _, _, text, ptext = inputs
     g_top, g_fb = llm_mod.decode_noise(
         cfg.lm, cfg.max_speech_tokens, 1, torch.Generator().manual_seed(9))
 
@@ -427,15 +565,320 @@ def cross_check(full_cfg, inputs, device="cuda"):
         pcm_gpu.shape == pcm_cpu.shape else None
     corr = float(np.corrcoef(pcm_gpu, pcm_cpu)[0, 1]) if diff is not None \
         else float("nan")
-    log(f"[cross] reduced depth (2 LM layers, 1 mid UNet block, 1+1 encoder "
-        f"blocks), TF32 off: token ids identical {bool(same_ids)} "
-        f"({len(ids_gpu)} vs {len(ids_cpu)} tokens); PCM max |diff| {diff} "
-        f"LSB (tol {PCM_TOL_LSB}), corr {corr:.6f}, peak "
-        f"{int(np.abs(pcm_cpu).max())}")
+    log(f"[cross] reduced depth (2 LM layers, 1 mid UNet block, 1+1 "
+        f"encoder blocks), float32, TF32 off: token ids "
+        f"identical {bool(same_ids)} ({len(ids_gpu)} vs {len(ids_cpu)} "
+        f"tokens); PCM max |diff| {diff} LSB (tol {PCM_TOL_LSB}), corr "
+        f"{corr:.6f}, peak {int(np.abs(pcm_cpu).max())}")
     if not same_ids:
         raise AssertionError("token ids differ between the card and the CPU")
     if diff is None or diff > PCM_TOL_LSB:
         raise AssertionError(f"PCM differs by {diff} LSB")
+
+
+def w8a8_cross_check(full_cfg, pipes, inputs, device="cuda"):
+    """Phase 5, the W8A8 LM as bench.py builds it (random int8 kernels,
+    unit scales) at reduced depth with float32 activations (bf16 would
+    round the other summation orders of attention and norms into
+    different tokens), the same weights on the card and on the CPU.
+    First every QuantDense call of the CPU's whole decode (the prefill's
+    rows, then one row per step) is replayed on the card on the same
+    input, and each output must equal the CPU's bit for bit. Then both
+    devices decode with the same noise and the token ids must be
+    identical. Rounding each activation row to int8 can turn float32
+    noise into a whole int8 step where an element sits at a rounding
+    boundary; the replay tells such a case apart from a fault in the
+    layer."""
+    import torch
+
+    from minimax_speech_torch.infer.pipeline import decode_plan
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.models import qwen2
+    from minimax_speech_torch.utils import params_io
+
+    cfg, _, _, prompt_tokens, _, lm_spk, _ = pipes
+    _, _, text, ptext = inputs
+    lm_cfg = reduced(full_cfg).lm
+    cpu = params_io.init_params(llm_mod.SpeechLM(lm_cfg),
+                                torch.Generator().manual_seed(5)).eval()
+    dev = llm_mod.SpeechLM(lm_cfg).to(device).eval()
+    dev.load_state_dict(cpu.state_dict())
+    g_top, g_fb = llm_mod.decode_noise(
+        lm_cfg, cfg.max_speech_tokens, 1, torch.Generator().manual_seed(9))
+    src, tok, plen, min_len, max_len = decode_plan(cfg, text, ptext,
+                                                   prompt_tokens)
+    on_card = dict(dev.named_modules())
+    replay = {"calls": 0, "rows": 0, "differ": []}
+
+    def hook(name):
+        def check(mod, args, out):
+            got = on_card[name](args[0].to(device)).cpu()
+            replay["calls"] += 1
+            replay["rows"] += out.numel() // out.shape[-1]
+            if not torch.equal(got, out):
+                replay["differ"].append(f"{name} rows {out.shape[:-1]}")
+        return check
+
+    ids = {}
+    for name, lm in (("cpu", cpu), ("card", dev)):
+        d = "cpu" if name == "cpu" else device
+        hooks = [m.register_forward_hook(hook(n))
+                 for n, m in lm.named_modules()
+                 if name == "cpu" and isinstance(m, qwen2.QuantDense)]
+        out, cnt = llm_mod.generate(lm, src, tok, plen, lm_spk.to(d), min_len,
+                                    max_len, max_steps=cfg.max_speech_tokens,
+                                    gumbel_top=g_top, gumbel_fallback=g_fb,
+                                    device=d)
+        for h in hooks:
+            h.remove()
+        ids[name] = out.cpu().numpy()[0, : int(cnt[0])]
+    differ = np.nonzero(ids["card"] != ids["cpu"])[0] \
+        if ids["card"].shape == ids["cpu"].shape else [0]
+    log(f"[cross] W8A8 LM (2 layers, random int8 kernels, float32 "
+        f"activations): the CPU decode's {replay['calls']} QuantDense calls "
+        f"({replay['rows']} rows) replayed on the card, bit-identical in "
+        f"{replay['calls'] - len(replay['differ'])}; free decode, card vs "
+        f"CPU, same weights and noise: {len(differ)} of {len(ids['cpu'])} "
+        f"token ids differ, the first at step "
+        f"{int(differ[0]) if len(differ) else None}")
+    if replay["differ"] or not replay["calls"]:
+        raise AssertionError(f"W8A8 layers differ on the card on the CPU "
+                             f"decode's inputs: {replay['differ'][:5]}")
+    if len(differ):
+        raise AssertionError("W8A8 token ids differ between the card and "
+                             "the CPU")
+
+
+def _prompt(pipe, inputs):
+    a16, a24, text, ptext = inputs
+    lm_spk, flow_emb = pipe.speaker_embedding(pipe.extract_prompt_mel(a24))
+    lm_spk = lm_spk.to(next(pipe.lm.parameters()).dtype)
+    return (text, ptext, pipe.extract_prompt_tokens(a16),
+            pipe.extract_prompt_latent(a24), lm_spk, flow_emb)
+
+
+def stream_main_path(pipe, inputs, card: str, device="cuda"):
+    """Phase 11: the synthesis paths of the CLI at full width, each with
+    K1's count set to 0 just before it and read just after: one unfused
+    `synthesize`; a chunked StreamingSession (one warm-up utterance, one
+    timed); a non-chunked one. Returns (K1 launches by path, the shapes
+    K1 saw on the streaming paths)."""
+    import torch
+
+    from minimax_speech_torch.infer.session import StreamingSession
+    from minimax_speech_torch.kernels import flash_attention as fa
+
+    cfg = pipe.cfg
+    args = _prompt(pipe, inputs)
+    spf = 480
+    expect = attn_calls_per_step(cfg) * cfg.flow.n_timesteps
+    seen = []
+    first_block = pipe.flow.estimator.down[0][1][0]
+
+    def saw(mod, a):
+        attn = a[1]
+        mode = "plain" if attn.bias is not None else f"k1 chunk {attn.chunk}"
+        kv = None if attn.kv_len is None else attn.kv_len.tolist()
+        seen.append((mode, tuple(a[0].shape[:2]), kv))
+
+    hook = first_block.register_forward_pre_hook(saw)
+    counts, secs = {}, {}
+    on = device == "cuda"
+
+    def counted(label, fn):
+        # K1's launches and the host seconds of each flow call, to its
+        # end on the device
+        def run(*a, **kw):
+            before, t0 = fa.launches, time.perf_counter()
+            out = fn(*a, **kw)
+            if on:
+                torch.cuda.synchronize()
+            counts.setdefault(label, []).append(fa.launches - before)
+            secs.setdefault(label, []).append(
+                round(time.perf_counter() - t0, 4))
+            return out
+        return run
+
+    fa.launches = 0
+    gen = torch.Generator(device=device).manual_seed(3)
+    wav, tim = pipe.synthesize(*args, generator=gen, return_timings=True)
+    counts["unfused"] = [fa.launches]
+    log(f"[stream] {card} | unfused synthesize: tokens {tim['tokens']}, "
+        f"audio_s {tim['audio_s']:.2f}, total_s {tim['total_s']:.4f} (LM "
+        f"{tim['lm_s']:.4f}), K1 launches {fa.launches}, finite "
+        f"{bool(np.isfinite(wav).all())}")
+    if tim["tokens"] != GEN_TOKENS or not np.isfinite(wav).all() \
+            or (on and counts["unfused"] != [expect]):
+        raise AssertionError(f"unfused synthesize: {tim}, K1 {counts}")
+
+    results = {}
+    for chunked in (True, True, False):
+        sess = StreamingSession(pipe, chunked=chunked)
+        label = "chunked" if chunked else "nonchunked"
+        if chunked:
+            for name in ("prefill", "step", "final"):
+                setattr(sess.cfs, name, counted(f"{label}_{name}",
+                                                getattr(sess.cfs, name)))
+        else:
+            sess._flow_chunk = counted(f"{label}_hop", sess._flow_chunk)
+        for key in [k for k in counts if k.startswith(label)]:
+            counts[key], secs[key] = [], []
+        seen.clear()
+        fa.launches = 0
+        gen = torch.Generator(device=device).manual_seed(4)
+        t0 = time.perf_counter()
+        stamps, chunks = [], []
+        for chunk in sess.synthesize_stream(*args, generator=gen):
+            stamps.append(time.perf_counter() - t0)
+            chunks.append(chunk)
+        total = np.concatenate([c.audio for c in chunks])
+        results[label] = dict(ttfc=stamps[0], total=stamps[-1],
+                              n=len(chunks), audio_s=len(total) / 24000,
+                              tokens=chunks[-1].tokens,
+                              launches=fa.launches, shapes=list(seen))
+        # int16 PCM / 32767, crossfaded by Hamming halves (gain <= 1.08)
+        ok = (chunks[-1].final and np.isfinite(total).all()
+              and chunks[-1].tokens == GEN_TOKENS
+              and np.abs(total).max() <= 1.1)
+        if chunked:
+            ok &= len(total) == 2 * GEN_TOKENS * spf
+        r = results[label]
+        log(f"[stream] {card} | {label}: time to first chunk "
+            f"{r['ttfc']:.4f} s, total {r['total']:.4f} s, {r['n']} chunks, "
+            f"audio_s {r['audio_s']:.2f}, rtf {r['total'] / r['audio_s']:.5f}"
+            f", tokens {r['tokens']}, finite {bool(np.isfinite(total).all())}"
+            f", peak {np.abs(total).max():.4f}; K1 launches "
+            f"{ {k: v for k, v in counts.items() if k.startswith(label)} }"
+            f"; flow s per call "
+            f"{ {k: v for k, v in secs.items() if k.startswith(label)} }")
+        if not ok:
+            raise AssertionError(f"{label} streaming output: {r}")
+    hook.remove()
+
+    modes = {m for m, _, _ in results["nonchunked"]["shapes"]}
+    c50 = f"k1 chunk {cfg.flow.unet.static_chunk_size}"
+    chunked_modes = {m for m, _, _ in results["chunked"]["shapes"]}
+    log(f"[stream] K1 modes seen: chunked {sorted(chunked_modes)}, "
+        f"non-chunked {sorted(modes)}")
+    if on:
+        hops = counts["nonchunked_hop"]
+        want = dict(chunked_prefill=[expect],
+                    chunked_step=[0] * len(counts["chunked_step"]),
+                    chunked_final=[0], nonchunked_hop=[expect] * len(hops))
+        got = {k: counts[k] for k in want}
+        if got != want or c50 not in modes or len(hops) < 2:
+            raise AssertionError(f"K1 launches on the streaming paths {got}, "
+                                 f"expected {want}; modes {modes}")
+    prefill = next(s for s in results["chunked"]["shapes"]
+                   if s[0].startswith("k1"))
+    hop = max((s for s in results["nonchunked"]["shapes"] if s[0] == c50),
+              key=lambda s: s[1][1])
+    launches = {"unfused": counts["unfused"][0],
+                "stream_prefill": counts["chunked_prefill"][0],
+                "stream_per_hop_chunked": counts["chunked_step"],
+                "stream_per_hop_chunk50": counts["nonchunked_hop"][:-1],
+                "stream_final_nonchunked": counts["nonchunked_hop"][-1]}
+    return launches, {"prefill": (prefill[1], prefill[2]),
+                      "chunk50_hop": (hop[1], hop[2])}, results
+
+
+def stream_cross_check(pipes, inputs, device="cuda"):
+    """Phase 12, reduced depth: the card's chunked session against its own
+    unit-grid pass (flow_inference_unit_grid), and the streamed PCM of
+    the card against the CPU's with the same weights and noise."""
+    import torch
+
+    from minimax_speech_torch.infer.session import StreamingSession
+    from minimax_speech_torch.infer.stream_flow import ChunkedFlowSession
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.models.flow import flow_inference_unit_grid
+
+    cfg, cpu, gpu, prompt_tokens, prompt_latent, lm_spk, flow_emb = pipes
+    _, _, text, ptext = inputs
+    hop, look, window = 25, 3, 100
+    ratio = cfg.token_latent_ratio
+    plen = min(len(prompt_tokens), prompt_latent.shape[0] // ratio)
+    ptoks, pfeat = prompt_tokens[:plen], prompt_latent[: ratio * plen]
+    gen_toks = np.random.default_rng(12).integers(0, 6561, GEN_TOKENS)
+    emb = flow_emb.to(device)
+    s = ChunkedFlowSession(gpu.flow, gpu.noise, token_hop=hop,
+                           lookahead=look, max_tokens=512 + GEN_TOKENS + 64,
+                           window=window, device=device)
+    s.prefill(ptoks, pfeat, emb, gen_toks[:look])
+    parts, c = [], 0
+    while c + hop + look <= GEN_TOKENS:
+        parts.append(s.step(gen_toks[c: c + hop],
+                            gen_toks[c + hop: c + hop + look]))
+        c += hop
+    parts.append(s.final(gen_toks[c:]))
+    chunked = np.concatenate(parts)
+    tokens = np.concatenate([ptoks, gen_toks])[None]
+    full = flow_inference_unit_grid(
+        gpu.flow, tokens, [tokens.shape[1]], pfeat[None], plen, emb,
+        gpu.noise, window=window, device=device)[0, ratio * plen:]
+    full = full.float().cpu().numpy()
+    atol, rtol = 5e-4, 1e-2
+    diff = np.abs(chunked - full)
+    need = max(0.0, float((diff - rtol * np.abs(full)).max()))
+    log(f"[cross-stream] chunked session ({len(parts)} calls after the "
+        f"prefill) vs the unit-grid pass on the card: frames "
+        f"{chunked.shape} vs {full.shape}, max |diff| {diff.max():.2e}, "
+        f"need_atol {need:.1e} (tol {atol:g}+{rtol:g}*|ref|), median |ref| "
+        f"{np.median(np.abs(full)):.2e}")
+    if chunked.shape != full.shape or need > atol:
+        raise AssertionError("the chunked session differs from its unit grid")
+
+    g_top, g_fb = llm_mod.decode_noise(
+        cfg.lm, cfg.max_speech_tokens, 1, torch.Generator().manual_seed(13))
+
+    def streamed(pipe, dev):
+        sess = StreamingSession(pipe)
+        chunks = list(sess.synthesize_stream(
+            text, ptext, prompt_tokens, prompt_latent, lm_spk.to(dev),
+            flow_emb.to(dev), gumbel_top=g_top, gumbel_fallback=g_fb))
+        pcm = np.round(np.concatenate([c.audio for c in chunks]) * 32767)
+        return pcm.astype(np.int32), len(chunks), chunks[-1].tokens
+
+    pcm_gpu, n_gpu, tok_gpu = streamed(gpu, device)
+    pcm_cpu, n_cpu, tok_cpu = streamed(cpu, "cpu")
+    diff = int(np.abs(pcm_gpu - pcm_cpu).max()) if \
+        pcm_gpu.shape == pcm_cpu.shape else None
+    log(f"[cross-stream] streamed PCM, card vs CPU: {n_gpu} vs {n_cpu} "
+        f"chunks, {tok_gpu} vs {tok_cpu} tokens, max |diff| {diff} LSB (tol "
+        f"{PCM_TOL_LSB}), peak {int(np.abs(pcm_cpu).max())}")
+    if tok_gpu != tok_cpu or diff is None or diff > PCM_TOL_LSB:
+        raise AssertionError(f"streamed PCM differs: {diff} LSB")
+
+
+def synth_cli_phase(config: str = "configs/default.yaml", device="cuda"):
+    """Phase 13: cli/synthesize.main at full width with the W8A8 LM, once
+    unfused and once streaming, each writing a wav."""
+    import tempfile
+    import wave
+
+    from minimax_speech_torch.cli import synthesize as synth_cli
+
+    repo = Path(__file__).resolve().parent
+    scratch = repo / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="synth_cli_",
+                                     dir=scratch) as root:
+        for stream in (False, True):
+            out = Path(root) / f"out_{int(stream)}.wav"
+            argv = ["--random_init", "--config", str(repo / config),
+                    "--device", device, "--out", str(out),
+                    "--text", "Hello there, this is a test.",
+                    "--override", "model.lm.qwen.quantized=true",
+                    "--override", "model.max_speech_tokens=100"]
+            t0 = time.perf_counter()
+            audio = synth_cli.main(argv + (["--stream"] if stream else []))
+            secs = time.perf_counter() - t0
+            with wave.open(str(out)) as w:
+                n = w.getnframes()
+            log(f"[synth-cli] {'--stream' if stream else 'unfused'}: wrote "
+                f"{n} samples ({n / 24000:.2f} s) in {secs:.1f} s")
+            if n != len(audio) or n == 0 or not np.isfinite(audio).all():
+                raise AssertionError(f"synthesis CLI wrote {n} samples")
 
 
 def k2_checks(lm_shape, kv_lm):
@@ -904,7 +1347,6 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from minimax_speech_torch.infer.pipeline import TTSConfig, TTSPipeline
     from minimax_speech_torch.kernels import build
-    from minimax_speech_torch.kernels import flash_attention as fa
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -918,13 +1360,19 @@ def main() -> int:
 
     build_phase(build)
 
+    train_lm = TTSConfig().lm  # training runs the float LM
     cfg = fixed_length(TTSConfig(), GEN_TOKENS)
+    # synthesis runs the LM as bench.py builds it: W8A8 projections with
+    # random int8 kernels (bf16 elsewhere in phase 4)
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(
+        train_lm, qwen=dataclasses.replace(train_lm.qwen, quantized=True)))
     inputs = prompts()
     b, h = 2, cfg.flow.unet.num_heads  # CFG batch of 2
+    d = cfg.flow.unet.attention_head_dim
     n_prompt = 75  # 3 s at 25 Hz
     t = 2 * (128 + GEN_TOKENS)  # [prompt bucket | max steps] tokens, 2x
     kv = 2 * (n_prompt + GEN_TOKENS)
-    record = k1_checks((b, h, t, cfg.flow.unet.attention_head_dim), (kv, kv))
+    record = k1_checks((b, h, t, d), (kv, kv))
 
     pipe = TTSPipeline.from_random(cfg, seed=0, device="cuda")
     pipe.lm.to(torch.bfloat16)
@@ -936,17 +1384,35 @@ def main() -> int:
                              f"(expected {expect}), shape {seen}")
     del pipe
     torch.cuda.empty_cache()
-
-    cross_check(cfg, inputs)
+    pipes = reduced_pipes(cfg, inputs)
+    cross_check(pipes, inputs)
+    w8a8_cross_check(cfg, pipes, inputs)
+    del pipes
     record["launches"] = per_utt[-1]
 
-    batch = lm_batch(cfg.lm)
-    q = cfg.lm.qwen
+    batch = lm_batch(train_lm)
+    q = train_lm.qwen
     k2 = k2_checks((LM_BATCH, q.n_heads, LM_PAD, q.head_dim),
                    [int(n) for n in batch["seq_len"]])
-    k2.update(train_main_path(cfg.lm, batch, card))
+    k2.update(train_main_path(train_lm, batch, card))
     cli_phase()
-    train_cross_check(cfg.lm, batch)
+    train_cross_check(train_lm, batch)
+
+    w8a8_checks(cfg.lm.qwen, card)
+    pipe = TTSPipeline.from_random(cfg, seed=0, device="cuda")
+    pipe.lm.to(torch.bfloat16)
+    record["launches_by_path"], shapes, _ = stream_main_path(pipe, inputs,
+                                                             card)
+    del pipe
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    record["at_streaming_shapes"] = {}
+    for path, ((bb, tt), kv_s) in shapes.items():
+        chunk = cfg.flow.unet.static_chunk_size if "chunk50" in path else 0
+        record["at_streaming_shapes"][path] = k1_timing(
+            gen, (bb, h, tt, d), kv_s, chunk)
+    stream_cross_check(reduced_pipes(cfg, inputs), inputs)
+    synth_cli_phase()
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))

@@ -11,7 +11,11 @@ Port of minimax_speech_tpu/infer/pipeline.py, latent output mode
   5. DAC-VAE decode -> trimmed int16 PCM, cut on the device
 
 Everything runs on one device, CUDA unless the caller passes
-device="cpu". `synthesize_fused` copies to the host once, at the end.
+device="cpu". `synthesize_fused` copies to the host once, at the end;
+`synthesize` (the unfused path) copies the generated tokens to the host
+between the LM and the flow. Streaming is infer/session.py. With
+`lm.qwen.quantized` the LM's projections are W8A8 (models/qwen2.py), and
+`from_random` gives them random int8 kernels, as bench.py does.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from minimax_speech_torch.models import dac_vae, hifigan
 from minimax_speech_torch.models import llm as llm_mod
 from minimax_speech_torch.models import s3tokenizer as s3
 from minimax_speech_torch.models.flow import (FlowConfig, FlowModel,
+                                              flow_inference,
                                               flow_inference_batched)
 from minimax_speech_torch.ops import mel as mel_ops
 from minimax_speech_torch.utils import params_io
@@ -152,6 +157,48 @@ class TTSPipeline:
         return self.lm.embed_speaker(mel), self.flow.embed_speaker(mel)
 
     # -- synthesis ------------------------------------------------------------
+    @torch.no_grad()
+    def synthesize(self, text_tokens: np.ndarray,
+                   prompt_text_tokens: np.ndarray,
+                   prompt_speech_tokens: np.ndarray, prompt_feat: np.ndarray,
+                   lm_spk, flow_emb, generator: torch.Generator | None = None,
+                   gumbel_top=None, gumbel_fallback=None,
+                   return_timings: bool = False):
+        """One utterance, unfused: the LM decode, the generated tokens to
+        the host, then flow (`flow_inference` on [prompt | generated]
+        padded to a bucket) and DAC decode, the waveform trimmed on the
+        host. prompt_feat: (Tp, 80) latents. Noise as synthesize_fused.
+        Returns float32 audio."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        src, tok, plen, min_len, max_len = decode_plan(
+            cfg, text_tokens, prompt_text_tokens, prompt_speech_tokens)
+        out, count = llm_mod.generate(
+            self.lm, src, tok, plen, lm_spk, min_len, max_len,
+            max_steps=cfg.max_speech_tokens, gumbel_top=gumbel_top,
+            gumbel_fallback=gumbel_fallback, generator=generator,
+            device=self.device)
+        n = int(count[0])
+        gen_tokens = out[0, :n].cpu().numpy()
+        t1 = time.perf_counter()
+
+        all_tokens = np.concatenate([prompt_speech_tokens, gen_tokens])
+        tl = len(all_tokens)
+        tokens = np.zeros((1, next_bucket(tl)), np.int64)
+        tokens[0, :tl] = all_tokens
+        feat = flow_inference(
+            self.flow, tokens, [tl], np.asarray(prompt_feat, np.float32)[None],
+            flow_emb, self.noise, device=self.device)
+        wav = self.dac.decode(feat.float()).reshape(-1)
+        wav = wav[: n * cfg.token_latent_ratio * SAMPLES_PER_FRAME]
+        wav = wav.cpu().numpy()
+        t2 = time.perf_counter()
+        if return_timings:
+            return wav, {"lm_s": t1 - t0, "flow_s": t2 - t1,
+                         "total_s": t2 - t0, "tokens": n,
+                         "audio_s": len(wav) / cfg.sample_rate}
+        return wav
+
     @torch.no_grad()
     def synthesize_fused(self, text_tokens: np.ndarray,
                          prompt_text_tokens: np.ndarray,

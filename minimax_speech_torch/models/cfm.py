@@ -1,9 +1,12 @@
 """Conditional flow matching inference: Euler ODE sampling with CFG.
 
 Port of the inference part of minimax_speech_tpu/models/cfm.py: the
-cosine t-schedule, the fixed numpy noise table, and `solve_euler` with
-classifier-free guidance as a batch of 2 (conditional and unconditional
-branches in one estimator call per step).
+cosine t-schedule, the fixed numpy noise table, and the Euler solvers
+with classifier-free guidance as a batch of 2 (conditional and
+unconditional branches in one estimator call per step): `solve_euler`
+over a whole sequence, and for chunked streaming `solve_euler_collect`
+(the prompt, collecting the estimator's state at every step) and
+`solve_euler_chunk` (one chunk against those states).
 """
 from __future__ import annotations
 
@@ -48,27 +51,84 @@ def euler_grid(n_timesteps: int, cfg: CFMConfig):
 
 def solve_euler(estimator: Callable, x: torch.Tensor, mu: torch.Tensor,
                 mask: torch.Tensor, spks: torch.Tensor, cond: torch.Tensor,
-                n_timesteps: int, cfg: CFMConfig) -> torch.Tensor:
+                n_timesteps: int, cfg: CFMConfig, **est_kw) -> torch.Tensor:
     """Euler solve from noise x (B, T, D). `estimator(x, mask, mu, t,
-    spks, cond)` returns the velocity. With guidance, each step runs the
-    conditional and unconditional branches as one batch of 2B."""
+    spks, cond, **est_kw)` returns the velocity (est_kw: the UNet's
+    `streaming`, `window`, `unit_align`). With guidance, each step runs
+    the conditional and unconditional branches as one batch of 2B."""
     b = x.shape[0]
     ts, dts = euler_grid(n_timesteps, cfg)
     rate = cfg.inference_cfg_rate
     if rate == 0.0:
         for t, dt in zip(ts.tolist(), dts.tolist()):
             t1 = torch.full((b,), t, dtype=x.dtype, device=x.device)
-            x = x + dt * estimator(x, mask, mu, t1, spks, cond).to(x.dtype)
+            x = x + dt * estimator(x, mask, mu, t1, spks, cond,
+                                   **est_kw).to(x.dtype)
         return x
 
-    mu2 = torch.cat([mu, torch.zeros_like(mu)], dim=0)
-    spks2 = torch.cat([spks, torch.zeros_like(spks)], dim=0)
-    cond2 = torch.cat([cond, torch.zeros_like(cond)], dim=0)
-    mask2 = torch.cat([mask, mask], dim=0)
+    mask2, mu2, spks2, cond2 = _cfg_batch(mask, mu, spks, cond)
     for t, dt in zip(ts.tolist(), dts.tolist()):
         x2 = torch.cat([x, x], dim=0)
         t2 = torch.full((2 * b,), t, dtype=x.dtype, device=x.device)
-        d2 = estimator(x2, mask2, mu2, t2, spks2, cond2)
+        d2 = estimator(x2, mask2, mu2, t2, spks2, cond2, **est_kw)
         dphi = (1.0 + rate) * d2[:b] - rate * d2[b:]
         x = x + dt * dphi.to(x.dtype)
     return x
+
+
+def _cfg_batch(mask, mu, spks, cond):
+    """The CFG batch of 2B: the conditioning, then zeros for the
+    unconditional branch; the mask twice."""
+    return (torch.cat([mask, mask], dim=0),
+            torch.cat([mu, torch.zeros_like(mu)], dim=0),
+            torch.cat([spks, torch.zeros_like(spks)], dim=0),
+            torch.cat([cond, torch.zeros_like(cond)], dim=0))
+
+
+def solve_euler_collect(estimator: Callable, x, mu, mask, spks, cond,
+                        n_timesteps: int, cfg: CFMConfig, collect_len: int,
+                        window: int = 100):
+    """The chunked-streaming prefill: the Euler solve over the (padded)
+    prompt that also collects the estimator's streaming state at each
+    step. `estimator(..., collect_len=, window=)` returns (velocity,
+    state). Returns (x, [state per step]); each state holds the CFG
+    batch of 2B."""
+    b = x.shape[0]
+    ts, dts = euler_grid(n_timesteps, cfg)
+    rate = cfg.inference_cfg_rate
+    mask2, mu2, spks2, cond2 = _cfg_batch(mask, mu, spks, cond)
+    states = []
+    for t, dt in zip(ts.tolist(), dts.tolist()):
+        x2 = torch.cat([x, x], dim=0)
+        t2 = torch.full((2 * b,), t, dtype=x.dtype, device=x.device)
+        d2, state = estimator(x2, mask2, mu2, t2, spks2, cond2,
+                              collect_len=collect_len, window=window)
+        dphi = (1.0 + rate) * d2[:b] - rate * d2[b:]
+        x = x + dt * dphi.to(x.dtype)
+        states.append(state)
+    return x, states
+
+
+def solve_euler_chunk(estimator: Callable, x, mu, spks, cond,
+                      n_timesteps: int, cfg: CFMConfig, states: list,
+                      offset: int, q_valid: int, window: int = 100):
+    """One streaming hop of the Euler solve: x, mu, cond are the chunk's
+    frames (B, cq, D) from absolute frame `offset`, q_valid of them valid;
+    `states` the per-step states of solve_euler_collect or the previous
+    hop. O(chunk) work. Returns (x, [new state per step])."""
+    b, cq, _ = x.shape
+    ts, dts = euler_grid(n_timesteps, cfg)
+    rate = cfg.inference_cfg_rate
+    mask = (torch.arange(cq, device=x.device) < q_valid)[None].to(x.dtype)
+    mask2, mu2, spks2, cond2 = _cfg_batch(mask, mu, spks, cond)
+    new_states = []
+    for (t, dt), state in zip(zip(ts.tolist(), dts.tolist()), states):
+        x2 = torch.cat([x, x], dim=0)
+        t2 = torch.full((2 * b,), t, dtype=x.dtype, device=x.device)
+        d2, state = estimator(x2, mask2, mu2, t2, spks2, cond2,
+                              cache=state, cache_offset=offset,
+                              q_valid=q_valid, window=window)
+        dphi = (1.0 + rate) * d2[:b] - rate * d2[b:]
+        x = x + dt * dphi.to(x.dtype)
+        new_states.append(state)
+    return x, new_states

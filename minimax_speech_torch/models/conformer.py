@@ -1,13 +1,19 @@
-"""WeNet/ESPnet-style conformer primitives, full-sequence mode.
+"""WeNet/ESPnet-style conformer primitives.
 
-Port of minimax_speech_tpu/models/conformer.py without the streaming
-`chunk` path: ESPnet relative positional encoding, rel-pos attention
-with the Transformer-XL u/v biases and rel-shift, position-wise FFN,
-the optional macaron FFN and convolution module, and the pre-norm
-encoder layer. Layout is (B, T, C); attention masks are (B, T, T) bool.
+Port of minimax_speech_tpu/models/conformer.py: ESPnet relative
+positional encoding, rel-pos attention with the Transformer-XL u/v
+biases and rel-shift, position-wise FFN, the optional macaron FFN and
+convolution module, and the pre-norm encoder layer. Layout is (B, T, C);
+attention masks are (B, T, T) bool.
+
+Two modes: full sequence (`forward`), and streaming (`chunk`), one chunk
+of frames against a preallocated (2, B, M, H, D) KV cache that the call
+writes in place at the chunk's absolute offset (the JAX package returns
+an updated copy instead).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -16,9 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def espnet_rel_pos_emb(t: int, d_model: int, dtype=torch.float32,
-                       device=None) -> torch.Tensor:
-    """(1, 2T-1, d) relative positional encoding, positions T-1 .. -(T-1)."""
+@functools.lru_cache(maxsize=8)
+def _rel_pos_table(t: int, d_model: int) -> np.ndarray:
+    """The table of espnet_rel_pos_emb, read-only; kept for the streaming
+    path, which asks for the same two sizes every hop."""
     pos = np.arange(t - 1, -t, -1, dtype=np.float64)
     div = np.exp(np.arange(0, d_model, 2, dtype=np.float64)
                  * -(np.log(10000.0) / d_model))
@@ -26,7 +33,15 @@ def espnet_rel_pos_emb(t: int, d_model: int, dtype=torch.float32,
     pe = np.zeros((2 * t - 1, d_model), np.float32)
     pe[:, 0::2] = np.sin(ang)
     pe[:, 1::2] = np.cos(ang)
-    return torch.as_tensor(pe, device=device).to(dtype)[None]
+    pe.setflags(write=False)
+    return pe
+
+
+def espnet_rel_pos_emb(t: int, d_model: int, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """(1, 2T-1, d) relative positional encoding, positions T-1 .. -(T-1)."""
+    return torch.tensor(_rel_pos_table(t, d_model), device=device,
+                        dtype=dtype)[None]
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -55,13 +70,18 @@ class RelPositionAttention(nn.Module):
             bound = math.sqrt(6.0 / sum(p.shape))  # xavier uniform
             p.data.uniform_(-bound, bound, generator=generator)
 
+    def _qkv(self, x):
+        b, t, c = x.shape
+        h = self.n_head
+        return (self.linear_q(x).view(b, t, h, c // h),
+                self.linear_k(x).view(b, t, h, c // h),
+                self.linear_v(x).view(b, t, h, c // h))
+
     def forward(self, x, attn_mask, pos_emb):
         b, t, c = x.shape
         h = self.n_head
         d = c // h
-        q = self.linear_q(x).view(b, t, h, d)
-        k = self.linear_k(x).view(b, t, h, d)
-        v = self.linear_v(x).view(b, t, h, d)
+        q, k, v = self._qkv(x)
         p = self.linear_pos(pos_emb).view(1, -1, h, d).expand(b, -1, h, d)
 
         ac = torch.einsum("bqhd,bkhd->bhqk", q + self.pos_bias_u, k)
@@ -76,6 +96,44 @@ class RelPositionAttention(nn.Module):
         attn = torch.softmax(scores, dim=-1).masked_fill(~m, 0.0).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, c)
         return self.linear_out(out)
+
+    def chunk(self, x, kv_cache, offset: int, key_valid_len: int, pos_table,
+              q_valid_len: int):
+        """One streaming chunk. x: (B, cq, C) frames starting at absolute
+        position `offset`; kv_cache: (2, B, M, H, D), written in place at
+        [offset, offset + cq); pos_table: (1, 2M-1, C) rel-pos table for
+        length M; keys < key_valid_len and queries < q_valid_len count.
+        The rel-pos term is gathered at rel = q_abs - k_abs from the whole
+        table (the rel-shift assumes queries are the last keys, which a
+        preallocated cache breaks). Returns (out (B, cq, C), kv_cache)."""
+        b, cq, c = x.shape
+        h = self.n_head
+        d = c // h
+        m_len = kv_cache.shape[2]
+        q, k, v = self._qkv(x)
+        kv_cache[0, :, offset: offset + cq] = k.to(kv_cache.dtype)
+        kv_cache[1, :, offset: offset + cq] = v.to(kv_cache.dtype)
+        kc, vc = kv_cache[0].to(x.dtype), kv_cache[1].to(x.dtype)
+        p = self.linear_pos(pos_table).view(-1, h, d)      # (2M-1, H, D)
+
+        ac = torch.einsum("bqhd,bkhd->bhqk", q + self.pos_bias_u, kc)
+        bd_full = torch.einsum("bqhd,rhd->bhqr", q + self.pos_bias_v, p)
+        # table row r holds rel position M-1-r: key j, query offset+a ->
+        # r = M-1-offset-a+j
+        a_idx = torch.arange(cq, device=x.device)[:, None]
+        j_idx = torch.arange(m_len, device=x.device)[None, :]
+        ridx = torch.clamp((m_len - 1) - (offset + a_idx) + j_idx, 0,
+                           2 * m_len - 2)
+        bd = torch.gather(bd_full, 3, ridx[None, None].expand(b, h, cq,
+                                                              m_len))
+        scores = (ac + bd) / math.sqrt(d)
+
+        m = ((j_idx < key_valid_len) & (a_idx < q_valid_len))[None, None]
+        neg = torch.finfo(torch.float32).min
+        scores = scores.float().masked_fill(~m, neg)
+        attn = torch.softmax(scores, dim=-1).masked_fill(~m, 0.0).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, vc).reshape(b, cq, c)
+        return self.linear_out(out), kv_cache
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -151,3 +209,13 @@ class ConformerEncoderLayer(nn.Module):
         if self.use_cnn:
             x = self.norm_final(x)
         return x
+
+    def chunk(self, x, kv_cache, offset: int, key_valid_len: int, pos_table,
+              q_valid_len: int):
+        """Streaming chunk step of the attention-only layer (the flow
+        encoder has no macaron or conv module). Returns (x, kv_cache)."""
+        att, kv_cache = self.self_attn.chunk(
+            self.norm_mha(x), kv_cache, offset, key_valid_len, pos_table,
+            q_valid_len)
+        x = x + att
+        return x + self.feed_forward(self.norm_ff(x)), kv_cache

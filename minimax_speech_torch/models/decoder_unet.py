@@ -1,15 +1,20 @@
-"""Causal conditional UNet, the CFM velocity estimator (full forward).
+"""Causal conditional UNet, the CFM velocity estimator.
 
-Port of minimax_speech_tpu/models/decoder_unet.py without its streaming
-modes (chunk masks, collect, chunk). A flat stack over latent frames:
-down stage(s), mid stages and up stage(s), each a causal resnet block
-plus transformer blocks. Channel-last (B, T, C).
+Port of minimax_speech_tpu/models/decoder_unet.py. A flat stack over
+latent frames: down stage(s), mid stages and up stage(s), each a causal
+resnet block plus transformer blocks. Channel-last (B, T, C).
 
-Every transformer block's attention goes through K1
+Every full-sequence call whose mask is the key-pad mask, alone or with
+the static chunk mask (`streaming`), attends through K1
 (kernels/flash_attention.py) with the frame mask as key lengths: the
 kernel on CUDA, its plain version on the CPU. With a prefix frame mask
-this is the function of the JAX package's XLA branch (key pad bias from
-add_optional_chunk_mask(mask, 0)) on every query row that sees a key.
+this is the function of the JAX package's XLA branch
+(add_optional_chunk_mask) on every query row that sees a key. That
+covers the one-shot paths, the streaming prefill (`collect_len`) and
+the non-chunked streaming session. Two masks K1 cannot express stay
+plain torch ops, as they are XLA ops in the JAX package: the cached
+chunk mode (window K/V tail plus the chunk) and the prompt-anchored unit
+grid (`unit_align`).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from minimax_speech_torch.kernels.flash_attention import flash_attention
+from minimax_speech_torch.ops import masks as mask_ops
 
 
 @dataclass(frozen=True)
@@ -62,6 +68,38 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
+class StreamState:
+    """The chunked-streaming state one UNet call reads and writes, keyed by
+    layer name: every causal conv keeps a 2-frame input tail and every
+    transformer block a `window`-frame K/V tail (2, B, window, H, D).
+    mode "collect" (a full pass over the prompt) stores the tails at the
+    prompt's valid length `plen` into `out`; mode "chunk" (one chunk
+    against the cache) reads `cache` and stores the advanced tails into
+    `out`."""
+
+    def __init__(self, mode: str, plen: int = 0, cache: dict | None = None,
+                 window: int = 100):
+        self.mode, self.plen = mode, plen
+        self.cache, self.window = cache, window
+        self.out: dict = {}
+
+    def conv_input(self, xin, key: str):
+        """The causal conv's input for masked frames `xin` (B, T, C): the
+        cached tail or two zero frames in front."""
+        if self.mode == "chunk":
+            self.out[key] = xin[:, -2:]
+            return torch.cat([self.cache[key].to(xin.dtype), xin], dim=1)
+        self.out[key] = mask_ops.tail(xin, 2, self.plen)
+        return F.pad(xin, (0, 0, 2, 0))
+
+
+def causal_conv(conv: nn.Conv1d, xin, state: StreamState | None, key: str):
+    """Stride-1 causal conv (k = 3) over channel-last masked frames."""
+    h = F.pad(xin, (0, 0, 2, 0)) if state is None \
+        else state.conv_input(xin, key)
+    return conv(h.transpose(1, 2)).transpose(1, 2)
+
+
 class CausalBlock1D(nn.Module):
     """Causal conv (k = 3) -> LayerNorm -> Mish, masked in and out."""
 
@@ -70,10 +108,9 @@ class CausalBlock1D(nn.Module):
         self.conv = nn.Conv1d(dim_in, dim_out, 3)
         self.norm = nn.LayerNorm(dim_out, eps=1e-6)
 
-    def forward(self, x, mask):
-        h = F.pad((x * mask[..., None]).transpose(1, 2), (2, 0))
-        h = self.norm(self.conv(h).transpose(1, 2))
-        return mish(h) * mask[..., None]
+    def forward(self, x, mask, state=None, key: str = ""):
+        h = causal_conv(self.conv, x * mask[..., None], state, key)
+        return mish(self.norm(h)) * mask[..., None]
 
 
 class CausalResnetBlock1D(nn.Module):
@@ -84,10 +121,30 @@ class CausalResnetBlock1D(nn.Module):
         self.block2 = CausalBlock1D(dim_out, dim_out)
         self.res_conv = nn.Linear(dim_in, dim_out)
 
-    def forward(self, x, mask, t_emb):
-        h = self.block1(x, mask) + self.mlp(mish(t_emb))[:, None, :]
-        h = self.block2(h, mask)
+    def forward(self, x, mask, t_emb, state=None, key: str = ""):
+        h = self.block1(x, mask, state, f"{key}.block1") \
+            + self.mlp(mish(t_emb))[:, None, :]
+        h = self.block2(h, mask, state, f"{key}.block2")
         return h + self.res_conv(x * mask[..., None])
+
+
+@dataclass
+class Attention:
+    """How a transformer block attends: with `bias` (an additive
+    (B or 1, 1, Tq, Tk) float32 tensor) by plain torch ops, else through
+    K1 with key lengths `kv_len` (B,) and K1's chunk mask."""
+    kv_len: torch.Tensor | None = None
+    chunk: int = 0
+    left_chunks: int = -1
+    bias: torch.Tensor | None = None
+
+
+def biased_attention(q, k, v, bias):
+    """softmax(q k^T / sqrt(d) + bias) v over (B, T, H, D) tensors, the
+    scores in float32."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    w = torch.softmax(scores.float() + bias, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 class UNetTransformerBlock(nn.Module):
@@ -107,17 +164,31 @@ class UNetTransformerBlock(nn.Module):
         self.ff_in = nn.Linear(dim, 4 * dim)
         self.ff_out = nn.Linear(4 * dim, dim)
 
-    def forward(self, x, kv_len):
+    def forward(self, x, attn: Attention, state: StreamState | None = None,
+                name: str = ""):
         b, t, _ = x.shape
         h = self.norm1(x)
+        q, k, v = (proj(h).view(b, t, self.num_heads, self.head_dim)
+                   for proj in (self.to_q, self.to_k, self.to_v))
+        if state is not None and state.mode == "chunk":
+            cached = state.cache[name].to(k.dtype)
+            k = torch.cat([cached[0], k], dim=1)
+            v = torch.cat([cached[1], v], dim=1)
+            state.out[name] = torch.stack([k, v])[:, :, -cached.shape[2]:]
+        elif state is not None:
+            state.out[name] = torch.stack(
+                [mask_ops.tail(k, state.window, state.plen),
+                 mask_ops.tail(v, state.window, state.plen)])
+        if attn.bias is not None:
+            o = biased_attention(q, k, v, attn.bias)
+        else:
+            def heads(y):  # (B, T, H, D) -> contiguous (B, H, T, D)
+                return y.transpose(1, 2).contiguous()
 
-        def heads(y):  # (B, T, H*D) -> contiguous (B, H, T, D)
-            return y.view(b, t, self.num_heads, self.head_dim) \
-                .transpose(1, 2).contiguous()
-
-        o = flash_attention(heads(self.to_q(h)), heads(self.to_k(h)),
-                            heads(self.to_v(h)), kv_len=kv_len)
-        x = x + self.to_out(o.transpose(1, 2).reshape(b, t, -1))
+            o = flash_attention(heads(q), heads(k), heads(v),
+                                kv_len=attn.kv_len, chunk=attn.chunk,
+                                left_chunks=attn.left_chunks).transpose(1, 2)
+        x = x + self.to_out(o.reshape(b, t, -1))
         h = F.gelu(self.ff_in(self.norm3(x)))
         return x + self.ff_out(h)
 
@@ -163,24 +234,57 @@ class CausalConditionalDecoder(nn.Module):
         self.final_block = CausalBlock1D(dim, dim)
         self.final_proj = nn.Linear(dim, cfg.out_channels)
 
-    @staticmethod
-    def _run_stage(stage, h, mask, t_emb, kv_len):
+    def _run_stage(self, stage, name, h, mask, t_emb, attn, state):
         res, tfs, _ = stage
-        h = res(h, mask, t_emb)
-        for blk in tfs:
-            h = blk(h, kv_len)
+        h = res(h, mask, t_emb, state, f"{name}_resnet")
+        for j, blk in enumerate(tfs):
+            h = blk(h, attn, state, f"{name}_tf_{j}")
         return h
 
-    @staticmethod
-    def _stage_conv(conv, h, mask):
-        """Stride-1 causal stage conv (k = 3, left zero pad)."""
-        h = F.pad((h * mask[..., None]).transpose(1, 2), (2, 0))
-        return conv(h).transpose(1, 2)
+    def _attention(self, mask, tlen: int, streaming: bool, chunked: bool,
+                   cache_offset: int, q_valid, window: int, unit_align):
+        cfg = self.cfg
+        dev = mask.device
+        if chunked:
+            # keys = [window tail | current chunk]
+            j = torch.arange(window + tlen, device=dev)[None, :]
+            key_ok = torch.where(j < window, (cache_offset - window + j) >= 0,
+                                 (j - window) < q_valid)
+            q_ok = (torch.arange(tlen, device=dev) < q_valid)[:, None]
+            return Attention(bias=mask_ops.mask_to_bias(
+                (key_ok & q_ok)[None, None]))
+        boolmask = mask > 0
+        if streaming and unit_align is not None:
+            attn = boolmask[:, None, :] & mask_ops.unit_chunk_mask(
+                tlen, unit_align, cfg.static_chunk_size, window, device=dev)
+            return Attention(bias=mask_ops.mask_to_bias(attn[:, None]))
+        # the key-pad mask [& the static chunk mask]: K1's function
+        return Attention(
+            kv_len=boolmask.sum(dim=1, dtype=torch.int32),
+            chunk=cfg.static_chunk_size if streaming else 0,
+            left_chunks=cfg.num_left_chunks)
 
-    def forward(self, x, mask, mu, t, spks=None, cond=None):
+    def forward(self, x, mask, mu, t, spks=None, cond=None,
+                streaming: bool = False, collect_len: int | None = None,
+                cache: dict | None = None, cache_offset: int = 0,
+                q_valid: int | None = None, window: int = 100,
+                unit_align: int | None = None):
         """x, mu, cond: (B, T, 80); mask: (B, T) float prefix mask; t: (B,);
-        spks: (B, 80). Returns the velocity (B, T, 80)."""
+        spks: (B, 80). Returns the velocity (B, T, 80).
+
+        streaming: the static chunk mask (chunk `static_chunk_size`, left
+        `num_left_chunks`) through K1; with unit_align (the prompt length
+        in frames) the prompt-anchored unit grid limited to `window` left
+        frames instead, by plain masked attention (the full-sequence twin
+        of the chunked path). collect_len: the prompt's valid length; the
+        full pass also returns the streaming state (velocity, state
+        dict). cache: one chunk starting at absolute frame cache_offset,
+        q_valid frames valid, against the state dict of the previous call
+        (window-frame K/V tails, attended by plain torch ops); returns
+        (velocity, new state dict)."""
         b, tlen, _ = x.shape
+        collect = collect_len is not None
+        chunked = cache is not None
         t_emb = self.time_mlp(sinusoidal_pos_emb(t, self.cfg.in_channels)
                               .to(x.dtype))
         feats = [x, mu]
@@ -189,18 +293,32 @@ class CausalConditionalDecoder(nn.Module):
         if cond is not None:
             feats.append(cond)
         h = torch.cat(feats, dim=-1)
-        kv_len = (mask > 0).sum(dim=1, dtype=torch.int32)
+        attn = self._attention(mask, tlen, streaming, chunked, cache_offset,
+                               q_valid, window, unit_align)
+        state = None
+        if chunked:
+            state = StreamState("chunk", cache=cache, window=window)
+        elif collect:
+            state = StreamState("collect", plen=collect_len, window=window)
+
+        def stage_conv(stage, name, h):
+            return causal_conv(stage[2], h * mask[..., None], state,
+                               f"{name}_conv")
 
         skips = []
-        for stage in self.down:
-            h = self._run_stage(stage, h, mask, t_emb, kv_len)
+        for i, stage in enumerate(self.down):
+            h = self._run_stage(stage, f"down_{i}", h, mask, t_emb, attn,
+                                state)
             skips.append(h)
-            h = self._stage_conv(stage[2], h, mask)
-        for stage in self.mid:
-            h = self._run_stage(stage, h, mask, t_emb, kv_len)
-        for stage in self.up:
+            h = stage_conv(stage, f"down_{i}", h)
+        for i, stage in enumerate(self.mid):
+            h = self._run_stage(stage, f"mid_{i}", h, mask, t_emb, attn,
+                                state)
+        for i, stage in enumerate(self.up):
             h = torch.cat([h, skips.pop()], dim=-1)
-            h = self._run_stage(stage, h, mask, t_emb, kv_len)
-            h = self._stage_conv(stage[2], h, mask)
-        h = self.final_block(h, mask)
-        return self.final_proj(h * mask[..., None]) * mask[..., None]
+            h = self._run_stage(stage, f"up_{i}", h, mask, t_emb, attn,
+                                state)
+            h = stage_conv(stage, f"up_{i}", h)
+        h = self.final_block(h, mask, state, "final_block")
+        out = self.final_proj(h * mask[..., None]) * mask[..., None]
+        return out if state is None else (out, state.out)

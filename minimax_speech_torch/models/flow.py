@@ -4,7 +4,13 @@ Port of the inference half of minimax_speech_tpu/models/flow.py: token
 embedding -> UpsampleConformerEncoder (2x to the latent rate) -> Dense
 to 80 -> 10-step CFG Euler with the causal UNet estimator. The prompt
 latents condition the solve through `cond`; speaker conditioning is the
-projected 192-d embedding.
+projected 192-d embedding. Three entry points: `flow_inference_batched`
+(the fused path), `flow_inference` (one utterance, full or streaming
+with the lookahead tokens held back as context) and
+`flow_inference_unit_grid` (the full-sequence twin of the chunked
+streaming path, infer/stream_flow.py); the chunked path itself drives
+`stream_encode_prefill` / `stream_encode_chunk` and the UNet's
+collect and chunk modes.
 """
 from __future__ import annotations
 
@@ -88,27 +94,75 @@ class FlowModel(nn.Module):
         """(B, T, 80) reference mel -> (B, 192) unit-norm embedding."""
         return self.speaker_encoder(reference_mel, reference_mask)
 
-    def encode_tokens(self, token, token_len):
+    def embed_tokens(self, token):
+        return self.input_embedding(torch.clamp(token, min=0))
+
+    def encode_tokens(self, token, token_len, context=None,
+                      streaming: bool = False, chunk_align=None):
         """tokens (B, T) -> ((B, 2T, 80) projected encoder output, lens)."""
         t = token.shape[1]
         m = mask_ops.make_non_pad_mask(token_len, t).float()
-        h = self.input_embedding(torch.clamp(token, min=0)) * m[..., None]
-        h, h_len = self.encoder(h, token_len)
+        h = self.embed_tokens(token) * m[..., None]
+        h, h_len = self.encoder(h, token_len, context=context,
+                                streaming=streaming, chunk_align=chunk_align)
         return self.encoder_proj(h), h_len
 
-    def estimate(self, x, mask, mu, t, spks, cond):
-        return self.estimator(x, mask, mu, t, spks, cond)
+    def estimate(self, x, mask, mu, t, spks, cond, streaming: bool = False,
+                 **kw):
+        return self.estimator(x, mask, mu, t, spks, cond,
+                              streaming=streaming, **kw)
+
+    # -- chunked streaming (O(chunk) per hop; infer/stream_flow.py) --------
+    def stream_encode_prefill(self, token_buf, plen: int, cache: dict):
+        """The prompt unit. token_buf: (B, P) with the prompt at [0, plen)
+        and the next chunk's first pre_lookahead_len tokens after it.
+        Returns (mu (B, 2P, 80), valid through 2*plen, and the encoder
+        state)."""
+        out, cache = self.encoder.prefill(self.embed_tokens(token_buf), plen,
+                                          cache)
+        return self.encoder_proj(out), cache
+
+    def stream_encode_chunk(self, tokens, cache: dict, offset: int,
+                            q_valid: int, ctx=None):
+        """One hop: tokens (B, cq) from absolute token `offset`; ctx (B, L)
+        the next chunk's first L tokens, None for the final chunk.
+        Returns (mu (B, 2cq, 80), the encoder state)."""
+        ctx_h = None if ctx is None else self.embed_tokens(ctx)
+        out, cache = self.encoder.chunk_step(self.embed_tokens(tokens), cache,
+                                             offset, q_valid, context=ctx_h)
+        return self.encoder_proj(out), cache
+
+    def project_speaker(self, embedding):
+        """(B, 192) -> (B, 80) speaker conditioning for the estimator."""
+        return self.spk_embed_affine_layer(embedding)
 
     def prepare_inference(self, token, token_len, prompt_feat, embedding,
-                          prompt_feat_len=None):
+                          streaming: bool = False, finalize: bool = True,
+                          prompt_feat_len=None, chunk_align=None):
         """Everything before the ODE solve: encoder output `mu`, projected
         speaker embedding, prompt conditioning `conds`, frame mask.
         token: (B, Tt) prompt+target tokens; prompt_feat: (B, Tp, 80);
-        prompt_feat_len: (B,) true prompt lengths, or None for all Tp."""
+        prompt_feat_len: (B,) true prompt lengths, or None for all Tp.
+        streaming: the encoder's chunk masks (chunk_align: on the unit
+        grid); finalize False: the last pre_lookahead_len tokens are not
+        encoded but feed the pre-lookahead conv as context."""
         c = self.cfg
         spks = self.spk_embed_affine_layer(embedding)
         prompt_feat = latent_normalize(c, prompt_feat)
-        mu, h_len = self.encode_tokens(token, token_len)
+        if finalize:
+            mu, h_len = self.encode_tokens(token, token_len,
+                                           streaming=streaming,
+                                           chunk_align=chunk_align)
+        else:
+            look = c.pre_lookahead_len
+            body = token[:, :-look]
+            m = mask_ops.make_non_pad_mask(token_len - look,
+                                           body.shape[1]).float()
+            h = self.embed_tokens(body) * m[..., None]
+            h, h_len = self.encoder(h, token_len - look,
+                                    context=self.embed_tokens(token[:, -look:]),
+                                    streaming=streaming)
+            mu = self.encoder_proj(h)
         b, tf, _ = mu.shape
         mel_len1 = prompt_feat.shape[1]
         mask = mask_ops.make_non_pad_mask(h_len, tf).to(mu.dtype)
@@ -129,19 +183,73 @@ def flow_inference_batched(model: FlowModel, token, token_len, prompt_feat,
     prompts; callers cut each row's generated region
     [prompt_feat_len[i], token_len[i] * ratio). noise: (1 or B, >= 2*Tt,
     80), the fixed table."""
+    c = model.cfg
+    token, token_len, prompt_feat, embedding, noise = _on_device(
+        model, device, token, token_len, prompt_feat, embedding, noise)
+    prompt_feat_len = torch.as_tensor(prompt_feat_len,
+                                      device=token.device).long()
+    mu, mask, spks, conds = model.prepare_inference(
+        token, token_len, prompt_feat, embedding,
+        prompt_feat_len=prompt_feat_len)
+    feat = cfm.solve_euler(model.estimate, _start_noise(model, noise, mu),
+                           mu, mask, spks, conds, c.n_timesteps, c.cfm)
+    return latent_denormalize(c, feat)
+
+
+def _start_noise(model: FlowModel, noise, mu):
+    """The first T frames of the fixed noise table, one per row."""
+    tf = mu.shape[1]
+    return noise[:, :tf].expand(mu.shape[0], tf, model.cfg.output_size) \
+        .to(mu.dtype)
+
+
+def _on_device(model: FlowModel, device, token, token_len, prompt_feat,
+               embedding, noise):
     dev = resolve_device(device)
     check_on(model, dev, "the flow model")
+    return (torch.as_tensor(token, device=dev).long(),
+            torch.as_tensor(token_len, device=dev).long(),
+            torch.as_tensor(prompt_feat, device=dev),
+            torch.as_tensor(embedding, device=dev),
+            torch.as_tensor(noise, device=dev))
+
+
+@torch.no_grad()
+def flow_inference(model: FlowModel, token, token_len, prompt_feat,
+                   embedding, noise, streaming: bool = False,
+                   finalize: bool = True, device=None) -> torch.Tensor:
+    """Latents for one batch of utterances given a latent prompt (B, Tp,
+    80): (B, 2*Tt - Tp, 80), the frames after the prompt (with finalize
+    False, 2*(Tt - pre_lookahead_len) - Tp). streaming: chunk masks in
+    the encoder and the UNet (K1's chunk mode)."""
     c = model.cfg
-    token = torch.as_tensor(token, device=dev).long()
-    token_len = torch.as_tensor(token_len, device=dev).long()
-    prompt_feat = torch.as_tensor(prompt_feat, device=dev)
-    prompt_feat_len = torch.as_tensor(prompt_feat_len, device=dev).long()
-    embedding = torch.as_tensor(embedding, device=dev)
-    noise = torch.as_tensor(noise, device=dev)
+    token, token_len, prompt_feat, embedding, noise = _on_device(
+        model, device, token, token_len, prompt_feat, embedding, noise)
     mu, mask, spks, conds = model.prepare_inference(
-        token, token_len, prompt_feat, embedding, prompt_feat_len)
-    tf = mu.shape[1]
-    z = noise[:, :tf].expand(mu.shape[0], tf, c.output_size).to(mu.dtype)
-    feat = cfm.solve_euler(model.estimate, z, mu, mask, spks, conds,
-                           c.n_timesteps, c.cfm)
+        token, token_len, prompt_feat, embedding, streaming, finalize)
+    feat = cfm.solve_euler(model.estimate, _start_noise(model, noise, mu),
+                           mu, mask, spks, conds, c.n_timesteps, c.cfm,
+                           streaming=streaming)
+    return latent_denormalize(c, feat[:, prompt_feat.shape[1]:])
+
+
+@torch.no_grad()
+def flow_inference_unit_grid(model: FlowModel, token, token_len,
+                             prompt_feat, prompt_len: int, embedding, noise,
+                             window: int = 100, device=None) -> torch.Tensor:
+    """The full-sequence pass on the prompt-anchored unit grid with a
+    `window`-frame UNet attention window: what the chunked streaming path
+    computes hop by hop, in one pass, to verify it. prompt_len: the prompt
+    in tokens (prompt_feat its 2x frames, maybe padded). Returns every
+    frame (B, 2*Tt, 80)."""
+    c = model.cfg
+    token, token_len, prompt_feat, embedding, noise = _on_device(
+        model, device, token, token_len, prompt_feat, embedding, noise)
+    mu, mask, spks, conds = model.prepare_inference(
+        token, token_len, prompt_feat, embedding, streaming=True,
+        chunk_align=prompt_len)
+    feat = cfm.solve_euler(model.estimate, _start_noise(model, noise, mu),
+                           mu, mask, spks, conds, c.n_timesteps, c.cfm,
+                           streaming=True, window=window,
+                           unit_align=prompt_len * c.token_latent_ratio)
     return latent_denormalize(c, feat)

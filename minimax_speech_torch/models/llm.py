@@ -10,7 +10,7 @@ the RAS decode loop of `generate` with pregenerated noise.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,7 +22,7 @@ from minimax_speech_torch.models.speaker_encoder import (
     LearnableSpeakerEncoder, SpeakerEncoderConfig, l2_normalize)
 from minimax_speech_torch.ops import masks as mask_ops
 from minimax_speech_torch.ops import sampling as sampling_ops
-from minimax_speech_torch.utils import losses
+from minimax_speech_torch.utils import losses, params_io
 from minimax_speech_torch.utils.device import check_on, resolve_device
 
 IGNORE_ID = losses.IGNORE_ID
@@ -149,6 +149,17 @@ class SpeechLM(nn.Module):
 
     def embed_speech_token(self, tok):
         return self.speech_embedding(tok)
+
+
+def quantize_lm(lm: SpeechLM, act_quant: bool = True) -> SpeechLM:
+    """A float SpeechLM -> a new quantized one (`QuantDense` projections,
+    W8A8 with act_quant, else weight-only) on the same device, its int8
+    kernels from qwen2.quantize_lm_params; every other leaf is copied."""
+    qcfg = replace(lm.cfg, qwen=replace(lm.cfg.qwen, quantized=True,
+                                        act_quant=act_quant))
+    tree = params_io.to_flax_params(lm)["params"]
+    out = SpeechLM(qcfg).to(next(lm.parameters()).device)
+    return params_io.load_flax_params(out, qwen2.quantize_lm_params(tree))
 
 
 def build_lm_plan(text_tokens, speech_tokens, mix_ratio=(5, 15),

@@ -1,6 +1,7 @@
 """Qwen2 decoder-only backbone (the stage-1 LM body).
 
-Port of minimax_speech_tpu/models/qwen2.py in fp32 or bf16. Inference:
+Port of minimax_speech_tpu/models/qwen2.py in fp32 or bf16, with the
+W8A8 projections of `QuantDense` when `quantized` is set. Inference:
 the KV cache is a preallocated (n_layers, B, max_len, n_kv, head_dim)
 pair written in place at a slot offset; RoPE is applied at write time
 with each token's true position, so storage slots and positions
@@ -15,6 +16,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,18 +36,129 @@ class Qwen2Config:
     intermediate_size: int = 4864
     rope_theta: float = 1e6
     rms_eps: float = 1e-6
-    quantized: bool = False  # W8A8 projections: not ported yet
+    quantized: bool = False  # int8 projection kernels (QuantDense)
+    act_quant: bool = True   # + per-row int8 activations (W8A8)
     remat: bool = False      # per-layer activation checkpointing: not yet
     remat_policy: str = "dots"
 
     def __post_init__(self):
-        if self.quantized:
-            raise NotImplementedError(
-                "quantized (W8A8) Qwen2 projections are not ported yet")
         if self.remat or self.remat_policy != "dots":
             raise NotImplementedError(
                 "Qwen2Config.remat / remat_policy (per-layer checkpointing) "
                 "is not ported yet: ROADMAP.md, queue 1, training slice")
+
+
+INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
+INT_MM_PAD_ROWS = 32
+PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+              "down_proj")
+
+
+def int8_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (N, K)^T int8 -> (M, N) int32, exact. On CUDA, cuBLAS
+    through `torch._int_mm` on `w.t()`, the column-major (K, N) operand it
+    takes; it refuses M <= 16 (the decode has M = 1), so the rows are
+    zero-padded to 32 and the result cut. On the CPU an int32 matmul, also
+    exact (127 * 127 * 4864 < 2^31)."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.int32), w.t().to(torch.int32))
+    m = a.shape[0]
+    if m < INT_MM_MIN_ROWS:
+        a = F.pad(a, (0, 0, 0, INT_MM_PAD_ROWS - m))
+    return torch._int_mm(a, w.t())[:m]
+
+
+def quantize_rows(x: torch.Tensor):
+    """(M, K) -> (int8 (M, K), scale (M, 1) in x's dtype): symmetric per
+    row, amax / 127, round half to even, clamped to +-127 before the cast
+    (with bf16 input the row's largest element can round to 128). The
+    divisor 127 is a tensor: CUDA divides by a Python scalar as a product
+    with its reciprocal, which can differ from the quotient by one ulp."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    x_scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
+    xq = torch.clamp(torch.round(x / x_scale), -127, 127).to(torch.int8)
+    return xq, x_scale
+
+
+class QuantDense(nn.Module):
+    """int8 Dense: kernel `kernel_q` stored int8 as (out, in), the layout
+    `int8_mm` streams, with per-output-channel scales. act_quant: dynamic
+    per-row symmetric int8 activations and an int8 x int8 product
+    accumulated in int32, with the JAX package's arithmetic (amax and the
+    scale in x's dtype, round half to even, clamp to +-127 before the
+    cast). Else weight-only: x times the kernel in x's dtype, summed in
+    float32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, act_quant: bool = True):
+        super().__init__()
+        self.act_quant = act_quant
+        self.kernel_q = nn.Parameter(
+            torch.zeros((out_features, in_features), dtype=torch.int8),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def init_weights(self, generator):
+        """Random int8 kernels in [-127, 127] and unit scales, as bench.py
+        gives the JAX package's quantized LM."""
+        w = self.kernel_q
+        w.copy_(torch.randint(-127, 128, w.shape, generator=generator,
+                              device=w.device, dtype=torch.int16))
+        self.scale.data.fill_(1.0)
+        if self.bias is not None:
+            self.bias.data.zero_()
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        if self.act_quant:
+            xq, x_scale = quantize_rows(x2)
+            y = (int8_mm(xq, self.kernel_q).float() * x_scale.float()
+                 * self.scale).to(x.dtype)
+        else:
+            y = torch.matmul(x2.float(), self.kernel_q.t().float())
+            y = (y * self.scale).to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias
+        return y.view(*lead, -1)
+
+
+def _dense(cfg: Qwen2Config, d_in: int, d_out: int, bias: bool) -> nn.Module:
+    if cfg.quantized:
+        return QuantDense(d_in, d_out, bias, cfg.act_quant)
+    return nn.Linear(d_in, d_out, bias=bias)
+
+
+def quantize_lm_params(params: dict, scope: str = "llm") -> dict:
+    """A flax variables tree with float Qwen2 projection kernels under
+    params[scope] -> the tree of the quantized modules: each kernel (in,
+    out) becomes `kernel_q` int8 and `scale` (out,) float32, per output
+    channel; norms, embeddings and biases stay. The JAX package's
+    arithmetic, in numpy."""
+    def quantize_kernel(w):
+        w = np.asarray(w, np.float32)
+        s = np.maximum(np.max(np.abs(w), axis=0) / 127.0, 1e-12)
+        q = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+        return q, s.astype(np.float32)
+
+    def rec(node):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            if k in PROJ_NAMES and isinstance(v, dict) and "kernel" in v:
+                q, s = quantize_kernel(v["kernel"])
+                out[k] = {"kernel_q": q, "scale": s}
+                if "bias" in v:
+                    out[k]["bias"] = v["bias"]
+            else:
+                out[k] = rec(v)
+        return out
+
+    new = dict(params)
+    new[scope] = rec(params[scope])
+    return new
 
 
 class RMSNorm(nn.Module):
@@ -70,10 +183,10 @@ class Qwen2Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         c, h, kvh, d = cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.q_proj = nn.Linear(c, h * d)
-        self.k_proj = nn.Linear(c, kvh * d)
-        self.v_proj = nn.Linear(c, kvh * d)
-        self.o_proj = nn.Linear(h * d, c, bias=False)
+        self.q_proj = _dense(cfg, c, h * d, True)
+        self.k_proj = _dense(cfg, c, kvh * d, True)
+        self.v_proj = _dense(cfg, c, kvh * d, True)
+        self.o_proj = _dense(cfg, h * d, c, False)
 
     def forward(self, x, positions, attn_bias, cache=None, cache_offset=0,
                 lengths=None):
@@ -123,9 +236,9 @@ class Qwen2MLP(nn.Module):
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
         c, i = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = nn.Linear(c, i, bias=False)
-        self.up_proj = nn.Linear(c, i, bias=False)
-        self.down_proj = nn.Linear(i, c, bias=False)
+        self.gate_proj = _dense(cfg, c, i, False)
+        self.up_proj = _dense(cfg, c, i, False)
+        self.down_proj = _dense(cfg, i, c, False)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))

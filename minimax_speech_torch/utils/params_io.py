@@ -12,8 +12,13 @@ module path plus a leaf name fixed by the module type:
   Conv1d     weight (out, in/g, k) <- Conv kernel (k, in/g, out)
   LayerNorm, GroupNorm  weight    <- scale
   Embedding  weight               <- embedding
+  QuantDense kernel_q (out, in) int8 <- kernel_q (in, out) int8, transposed
   anything else: same name, same layout (RMSNorm weight, rel-pos
-  biases, Snake alpha (1, 1, C), weight-norm g/v kept in flax layout).
+  biases, Snake alpha (1, 1, C), weight-norm g/v kept in flax layout,
+  QuantDense scale and bias).
+
+Floating leaves travel as float32; integer leaves (QuantDense's int8
+kernels) keep their dtype both ways.
 """
 from __future__ import annotations
 
@@ -57,6 +62,8 @@ def _leaf(mod: nn.Module, pname: str):
         return "scale", lambda a: a, lambda a: a
     if isinstance(mod, nn.Embedding) and pname == "weight":
         return "embedding", lambda a: a, lambda a: a
+    if pname == "kernel_q":
+        return "kernel_q", lambda a: a.T, lambda a: a.T
     return ident
 
 
@@ -85,10 +92,14 @@ def _flatten(tree: dict, prefix=()) -> dict:
     return out
 
 
+def _numpy(p: torch.Tensor) -> np.ndarray:
+    p = p.detach().cpu()
+    return (p.float() if p.is_floating_point() else p).numpy()
+
+
 def _to_flax(module: nn.Module) -> dict:
-    return {path: np.ascontiguousarray(
-        to_flax(p.detach().float().cpu().numpy()))
-        for path, p, _, to_flax in _params_with_paths(module)}
+    return {path: np.ascontiguousarray(to_flax(_numpy(p)))
+            for path, p, _, to_flax in _params_with_paths(module)}
 
 
 def to_flax_params(module: nn.Module) -> dict:
@@ -116,7 +127,13 @@ def load_flax_params(module: nn.Module, tree: dict) -> nn.Module:
     for path, p, to_torch, _ in _params_with_paths(module):
         if path not in flat:
             raise KeyError(f"flax tree has no leaf {'/'.join(path)}")
-        arr = np.asarray(to_torch(np.asarray(flat[path], np.float32)))
+        arr = np.asarray(flat[path])
+        if p.is_floating_point():
+            arr = arr.astype(np.float32)
+        elif arr.dtype != np.dtype(str(p.dtype).removeprefix("torch.")):
+            raise ValueError(f"{'/'.join(path)}: flax {arr.dtype} vs torch "
+                             f"{p.dtype}")
+        arr = np.asarray(to_torch(arr))
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{'/'.join(path)}: flax {arr.shape} vs "
                              f"torch {tuple(p.shape)}")
