@@ -62,7 +62,31 @@ a line; any failure ends the run with a non-zero exit:
      own unit-grid pass (flow_inference_unit_grid) within the JAX test's
      limit, and the streamed PCM of the card against the CPU's;
  13. cli/synthesize.main at full width, unfused and --stream, each
-     writing a wav.
+     writing a wav;
+ 15. serving at full width, phase 4's LM: a BatchSynthesizer call of 4
+     requests with ragged prompts (2-3.5 s) and texts (50-100 tokens),
+     then the longest alone; tokens, lengths, K1's launches per call
+     (560, at (2 x 4, ...) with ragged key lengths) and audio seconds
+     per wall second at B = 4 and B = 1;
+ 16. a ContinuousBatcher of 4 slots driven by run() with 6 staggered
+     arrivals (simulated clock): each request's latency to its final
+     event, every lane flushed, 560 K1 launches (chunk-50 mode) per hop
+     call; then a lockstep BatchStreamingSession of 3 requests: each
+     stream's time to its first chunk, 560 K1 launches per hop;
+ 14. K1 at the shapes phases 15 and 16 gave it, (8, 8, T, 64) with the
+     requests' ragged key lengths, full and chunk-50 modes, fp32 and
+     bf16, against its plain version at phase 3's limits; kernel, plain
+     and SDPA times and the bound (run after 15 and 16, whose shapes it
+     reads);
+ 17. cli/serve.py as a subprocess on a free loopback port, once per
+     scheduler (window, continuous), at full width (W8A8 LM, 30 tokens):
+     /healthz, a 3 s tone speaker registered, 3 concurrent /synthesize
+     requests answered with 24 kHz mono int16 WAVs, bad payloads
+     answered with 400; then warm_serving once in-process;
+ 18. reduced depth (float32 LM, 2 layers), card against CPU with the
+     same weights and noise: BatchSynthesizer token ids identical and
+     PCM within PCM_TOL_LSB, ContinuousBatcher bursts (a request joining
+     mid-decode) and BistreamDecoder token ids identical.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -81,6 +105,10 @@ import numpy as np
 
 GEN_TOKENS = 125          # 5 s of audio at 25 Hz
 TEXT_LEN = 12
+# serving (phases 15-17): the longest request generates SERVE_TOKENS; each
+# request is (prompt seconds, text tokens), its length text/12 of that
+SERVE_TOKENS = 100
+SERVE_SPECS = [(2.0, 6), (2.5, 8), (3.0, 10), (3.5, 12), (2.2, 7), (2.8, 9)]
 PROMPT_TEXT_LEN = 4
 PROMPT_SECONDS = 3.0
 TIMED_RUNS = 3
@@ -257,13 +285,29 @@ def k1_checks(main_shape, kv_main):
     (timings at the main-path shape)."""
     import torch
 
+    b, h, t, d = main_shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    main_err = k1_agreement([(main_shape, kv_main), ((b, h, 77, d), (77, 40))],
+                            MODES, gen)
+    rec = k1_timing(gen, main_shape, kv_main)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "minimax_speech_torch/csrc/flash_attention.cu",
+            "replaces": "minimax_speech_tpu/kernels/flash_attention.py:114",
+            "max_abs_err": main_err, **rec}
+
+
+def k1_agreement(cases, modes, gen) -> float:
+    """K1 against its plain version on random q, k, v for each (shape,
+    kv_len) case, in each mask mode, fp32 and bf16, at TOL; fails on any
+    disagreement. Returns the largest fp32 error of the first case's
+    first mode."""
+    import torch
+
     from minimax_speech_torch.kernels import flash_attention as fa
 
-    b, h, t, d = main_shape
-    cases = [(main_shape, kv_main), ((b, h, 77, d), (77, 40))]
-    gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = None
     failed = []
+    saved = fa.launches  # checks are not main-path launches
     for shape, kv in cases:
         lens = torch.tensor(kv, device="cuda", dtype=torch.int32)
         base = [torch.randn(shape, generator=gen, device="cuda")
@@ -272,7 +316,7 @@ def k1_checks(main_shape, kv_main):
                              ("bfloat16", torch.bfloat16)):
             q, k, v = (x.to(dtype) for x in base)
             atol, rtol = TOL[dname]
-            for mname, kw in MODES.items():
+            for mname, kw in modes.items():
                 out = fa.flash_attention(q, k, v, kv_len=lens, **kw)
                 ref = fa.reference_attention(q, k, v, lens, **kw)
                 torch.cuda.synchronize()
@@ -295,17 +339,12 @@ def k1_checks(main_shape, kv_main):
                     f"tol={atol:g}+{rtol:g}*|ref| {'ok' if ok else 'FAIL'}")
                 if not ok:
                     failed.append(f"{shape} {dname} {mname} err {err}")
-                if shape == main_shape and dname == "float32" \
-                        and mname == "full":
+                if main_err is None:
                     main_err = err
+    fa.launches = saved
     if failed:
         raise AssertionError(f"K1 disagrees: {failed}")
-
-    rec = k1_timing(gen, main_shape, kv_main)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "minimax_speech_torch/csrc/flash_attention.cu",
-            "replaces": "minimax_speech_tpu/kernels/flash_attention.py:114",
-            "max_abs_err": main_err, **rec}
+    return main_err
 
 
 def k1_timing(gen, shape, kv, chunk: int = 0) -> dict:
@@ -377,11 +416,7 @@ def main_path(pipe, inputs, runs: int, card: str, generator_device: str):
         f"{tuple(lm_spk.shape)} {lm_spk.dtype}, flow_emb "
         f"{tuple(flow_emb.shape)}")
 
-    seen = {}
-    first_block = pipe.flow.estimator.down[0][1][0]
-    hook = first_block.register_forward_pre_hook(
-        lambda mod, args: seen.update(bt=tuple(args[0].shape[:2]),
-                                      kv=args[1].kv_len.tolist()))
+    watch = K1Watch(pipe)
 
     def run(seed):
         gen = torch.Generator(device=generator_device).manual_seed(seed)
@@ -402,7 +437,8 @@ def main_path(pipe, inputs, runs: int, card: str, generator_device: str):
             raise AssertionError(f"main path output: tokens {tim['tokens']}, "
                                  f"samples {len(wav)}")
         results.append(tim)
-    hook.remove()
+    watch.close()
+    seen = {"bt": watch.seen[-1][1], "kv": watch.seen[-1][2]}
     tot = statistics.median(r["total_s"] for r in results)
     lm = statistics.median(r["lm_s"] for r in results)
     aud = results[0]["audio_s"]
@@ -672,32 +708,11 @@ def stream_main_path(pipe, inputs, card: str, device="cuda"):
     args = _prompt(pipe, inputs)
     spf = 480
     expect = attn_calls_per_step(cfg) * cfg.flow.n_timesteps
-    seen = []
-    first_block = pipe.flow.estimator.down[0][1][0]
-
-    def saw(mod, a):
-        attn = a[1]
-        mode = "plain" if attn.bias is not None else f"k1 chunk {attn.chunk}"
-        kv = None if attn.kv_len is None else attn.kv_len.tolist()
-        seen.append((mode, tuple(a[0].shape[:2]), kv))
-
-    hook = first_block.register_forward_pre_hook(saw)
-    counts, secs = {}, {}
+    # K1's launches and the host seconds of each flow call, to its end on
+    # the device
+    watch = K1Watch(pipe)
+    counts, secs, seen = watch.per_call, watch.secs, watch.seen
     on = device == "cuda"
-
-    def counted(label, fn):
-        # K1's launches and the host seconds of each flow call, to its
-        # end on the device
-        def run(*a, **kw):
-            before, t0 = fa.launches, time.perf_counter()
-            out = fn(*a, **kw)
-            if on:
-                torch.cuda.synchronize()
-            counts.setdefault(label, []).append(fa.launches - before)
-            secs.setdefault(label, []).append(
-                round(time.perf_counter() - t0, 4))
-            return out
-        return run
 
     fa.launches = 0
     gen = torch.Generator(device=device).manual_seed(3)
@@ -717,10 +732,9 @@ def stream_main_path(pipe, inputs, card: str, device="cuda"):
         label = "chunked" if chunked else "nonchunked"
         if chunked:
             for name in ("prefill", "step", "final"):
-                setattr(sess.cfs, name, counted(f"{label}_{name}",
-                                                getattr(sess.cfs, name)))
+                watch.count(sess.cfs, name, f"{label}_{name}", device)
         else:
-            sess._flow_chunk = counted(f"{label}_hop", sess._flow_chunk)
+            watch.count(sess, "_flow_chunk", f"{label}_hop", device)
         for key in [k for k in counts if k.startswith(label)]:
             counts[key], secs[key] = [], []
         seen.clear()
@@ -753,7 +767,7 @@ def stream_main_path(pipe, inputs, card: str, device="cuda"):
             f"{ {k: v for k, v in secs.items() if k.startswith(label)} }")
         if not ok:
             raise AssertionError(f"{label} streaming output: {r}")
-    hook.remove()
+    watch.close()
 
     modes = {m for m, _, _ in results["nonchunked"]["shapes"]}
     c50 = f"k1 chunk {cfg.flow.unet.static_chunk_size}"
@@ -879,6 +893,449 @@ def synth_cli_phase(config: str = "configs/default.yaml", device="cuda"):
                 f"{n} samples ({n / 24000:.2f} s) in {secs:.1f} s")
             if n != len(audio) or n == 0 or not np.isfinite(audio).all():
                 raise AssertionError(f"synthesis CLI wrote {n} samples")
+
+
+def serving_k1_phase(batch_seen, hop_seen, h: int, d: int, chunk: int):
+    """Phase 14: K1 at the serving shapes read off phases 15 and 16 (the
+    batch call's full mode and the widest continuous hop's chunk mode,
+    each B = 2 x requests for CFG, with their ragged key lengths), both
+    modes at each, fp32 and bf16, against its plain version at phase 3's
+    limits; then K1, plain and SDPA timed as graph replays in each path's
+    own mode. Returns the records by path."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    modes = {"full": {}, "chunk50": {"chunk": chunk}}
+    out = {}
+    for path, ((b, t), kv), c in (("serve_batch_full", batch_seen, 0),
+                                  ("serve_continuous_hop_chunk50", hop_seen,
+                                   chunk)):
+        k1_agreement([((b, h, t, d), kv)], modes, gen)
+        out[path] = k1_timing(gen, (b, h, t, d), kv, c)
+    return out
+
+
+def serve_requests(pipe, specs):
+    """Serving requests at the pipeline's width, one per (prompt seconds,
+    text tokens) spec: a tone prompt of that length (its own pitch), the
+    prompt tokens, latents and speaker conditioning extracted by the
+    pipeline, random text and prompt text ids from numpy seed 7."""
+    from minimax_speech_torch.infer.serving import Request
+
+    rng = np.random.default_rng(7)
+    reqs = []
+    for i, (secs, n_text) in enumerate(specs):
+        f = 180.0 + 40.0 * i
+        a16, a24 = (0.5 * np.sin(2 * np.pi * f * np.arange(int(sr * secs))
+                                 / sr).astype(np.float32)
+                    for sr in (16000, 24000))
+        lm_spk, flow_emb = pipe.speaker_embedding(pipe.extract_prompt_mel(a24))
+        vocab = pipe.cfg.lm.qwen.vocab_size
+        reqs.append(Request(
+            text_tokens=rng.integers(0, vocab, n_text),
+            prompt_text_tokens=rng.integers(0, vocab, PROMPT_TEXT_LEN),
+            prompt_speech_tokens=pipe.extract_prompt_tokens(a16),
+            prompt_feat=pipe.extract_prompt_latent(a24),
+            lm_spk=lm_spk.float().cpu().numpy()[0],
+            flow_emb=flow_emb.float().cpu().numpy()[0]))
+    return reqs
+
+
+def expected_tokens(cfg, r) -> int:
+    """The token count of a request under fixed_length: min == max."""
+    n = len(r.text_tokens)
+    return min(int(n * cfg.max_token_text_ratio), cfg.max_speech_tokens)
+
+
+class K1Watch:
+    """Until close(): the mode, (B, T) and key lengths of every UNet
+    attention call, seen at the first UNet block; and, per call of each
+    method wrapped by count(), K1's launches and the host seconds to the
+    call's end on the device."""
+
+    def __init__(self, pipe):
+        self.seen, self.per_call, self.secs = [], {}, {}
+
+        def saw(mod, a):
+            attn = a[1]
+            mode = "plain" if attn.bias is not None else \
+                f"k1 chunk {attn.chunk}"
+            kv = None if attn.kv_len is None else attn.kv_len.tolist()
+            self.seen.append((mode, tuple(a[0].shape[:2]), kv))
+        self.hook = pipe.flow.estimator.down[0][1][0] \
+            .register_forward_pre_hook(saw)
+
+    def close(self):
+        self.hook.remove()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def count(self, obj, name: str, label: str, device: str):
+        """Wrap obj.name so each call appends to per_call[label] and
+        secs[label]."""
+        import torch
+
+        from minimax_speech_torch.kernels import flash_attention as fa
+        fn = getattr(obj, name)
+
+        def run(*a, **kw):
+            before, t0 = fa.launches, time.perf_counter()
+            out = fn(*a, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            self.per_call.setdefault(label, []).append(fa.launches - before)
+            self.secs.setdefault(label, []).append(
+                round(time.perf_counter() - t0, 4))
+            return out
+        setattr(obj, name, run)
+
+
+def serve_batch_phase(pipe, reqs, card: str, device="cuda"):
+    """Phase 15: BatchSynthesizer at full width, the ragged requests in
+    one batch (padded to a power of two), then the last one alone; K1
+    counted from 0 per batch call. Returns (K1 launches per call, the
+    full-mode (B, T) and kv_len K1 saw in the batch call)."""
+    import torch
+
+    from minimax_speech_torch.infer.serving import BatchSynthesizer
+    from minimax_speech_torch.kernels import flash_attention as fa
+
+    cfg = pipe.cfg
+    synth = BatchSynthesizer(pipe)
+    expect = attn_calls_per_step(cfg) * cfg.flow.n_timesteps
+    results, launches, shapes = {}, [], {}
+    for label, batch in (("B=4", reqs), ("B=1", reqs[-1:])):
+        gen = torch.Generator(device=device).manual_seed(15)
+        with K1Watch(pipe) as watch:
+            fa.launches = 0
+            wavs, tim = synth.synthesize_batch(batch, generator=gen,
+                                               return_timings=True)
+            launches.append(fa.launches)
+        shapes[label] = watch.seen[0]
+        want = [expected_tokens(cfg, r) for r in batch]
+        ok = tim["tokens"] == want and all(
+            len(w) == n * 960 and np.isfinite(w).all()
+            for w, n in zip(wavs, want))
+        results[label] = tim
+        log(f"[serve-batch] {card} | {label} (padded to {tim['batch']}): "
+            f"tokens {tim['tokens']} (expected {want}), audio_s "
+            f"{tim['audio_s']:.2f}, total_s {tim['total_s']:.4f} (lm_s "
+            f"{tim['lm_s']:.4f}, flow + codec + copy "
+            f"{tim['e2e_s'] - tim['lm_s']:.4f}), audio-s per wall-s "
+            f"{tim['audio_s'] / tim['total_s']:.4f}; K1 launches "
+            f"{launches[-1]}, K1 saw {watch.seen[0]}")
+        if not ok or (device == "cuda" and launches[-1] != expect):
+            raise AssertionError(f"batched synthesis {label}: {tim}, K1 "
+                                 f"{launches[-1]} (expected {expect})")
+    mode, bt, kv = shapes["B=4"]
+    if device == "cuda" and (mode != "k1 chunk 0" or bt[0] != 8
+                             or len(set(kv)) < 2):
+        raise AssertionError(f"K1 in the batch call saw {shapes['B=4']}")
+    gain = (results["B=4"]["audio_s"] / results["B=4"]["total_s"]) / (
+        results["B=1"]["audio_s"] / results["B=1"]["total_s"])
+    log(f"[serve-batch] audio-s per wall-s, B=4 over B=1: {gain:.3f}")
+    return launches, (bt, kv)
+
+
+def serve_stream_phase(pipe, reqs, card: str, device="cuda"):
+    """Phase 16: a ContinuousBatcher of 4 slots driven by run() with 6
+    staggered arrivals (simulated clock), then a lockstep
+    BatchStreamingSession of 3; K1 counted per hop call. Returns (K1
+    launches per hop by path, the chunk-50 (B, T) and kv_len of the
+    widest continuous hop)."""
+    import torch
+
+    from minimax_speech_torch.infer.continuous import ContinuousBatcher
+    from minimax_speech_torch.infer.stream_batch import BatchStreamingSession
+    from minimax_speech_torch.kernels import flash_attention as fa
+
+    cfg = pipe.cfg
+    expect = attn_calls_per_step(cfg) * cfg.flow.n_timesteps
+    c50 = f"k1 chunk {cfg.flow.unet.static_chunk_size}"
+    arrivals = [0.0, 0.0, 0.0, 0.0, 2.0, 4.0]
+    cb = ContinuousBatcher(
+        pipe, slots=4, generator=torch.Generator(device=device).manual_seed(16))
+    with K1Watch(pipe) as watch:
+        watch.count(cb, "flow_audio", "continuous", device)
+        fa.launches = 0
+        t0 = time.perf_counter()
+        timed = list(cb.run(list(zip(arrivals, reqs))))
+        wall = time.perf_counter() - t0
+        cont_launches = fa.launches
+    hops = watch.per_call["continuous"]
+    ticks = cb._bursts
+    finals = {e.stream: (t, e.tokens) for t, e in timed if e.final}
+    audio = {}
+    for t, e in timed:
+        audio[e.stream] = audio.get(e.stream, 0) + len(e.audio)
+    want = [expected_tokens(cfg, r) for r in reqs]
+    lat = [round(finals[i][0] - arrivals[i], 3) if i in finals else None
+           for i in range(len(reqs))]
+    log(f"[serve-continuous] {card} | 4 slots, {len(reqs)} requests arriving "
+        f"at {arrivals} s (simulated clock): latency to the final event "
+        f"{lat} s, tokens {[finals.get(i, (0, None))[1] for i in range(len(reqs))]}"
+        f" (expected {want}), {ticks} ticks, wall {wall:.2f} s; {len(hops)} "
+        f"hop calls, K1 launches per hop {hops}; K1 modes "
+        f"{sorted({m for m, _, _ in watch.seen})}, hop batches "
+        f"{sorted({bt[0] for _, bt, _ in watch.seen})}")
+    ok = (sorted(finals) == list(range(len(reqs)))
+          and all(finals[i][1] == want[i] and audio[i] == want[i] * 960
+                  for i in range(len(reqs)))
+          and all(lane.free for lane in cb.lanes) and not cb.busy())
+    if not ok:
+        raise AssertionError(f"continuous batching: finals {finals}, audio "
+                             f"{audio}, expected {want}")
+    if device == "cuda" and (hops != [expect] * len(hops) or sum(hops)
+                             != cont_launches
+                             or {m for m, _, _ in watch.seen} != {c50}):
+        raise AssertionError(f"K1 on the continuous hops: {hops}, modes "
+                             f"{watch.seen[:3]}")
+    widest = max((s for s in watch.seen), key=lambda s: (s[1][0], s[1][1]))
+
+    sess = BatchStreamingSession(pipe)
+    with K1Watch(pipe) as watch:
+        watch.count(sess, "flow_audio", "lockstep", device)
+        fa.launches = 0
+        gen = torch.Generator(device=device).manual_seed(17)
+        t0 = time.perf_counter()
+        first, events = {}, []
+        for ev in sess.run(reqs[:3], generator=gen):
+            first.setdefault(ev.stream, time.perf_counter() - t0)
+            events.append(ev)
+        total = time.perf_counter() - t0
+    lock_hops = watch.per_call["lockstep"]
+    toks = {e.stream: e.tokens for e in events if e.final}
+    log(f"[serve-lockstep] {card} | B=3: time to first chunk "
+        f"{[round(first[i], 4) for i in range(3)]} s, total {total:.4f} s, "
+        f"tokens {[toks.get(i) for i in range(3)]} (expected {want[:3]}); "
+        f"{len(lock_hops)} hop calls, K1 launches per hop {lock_hops}")
+    if [toks.get(i) for i in range(3)] != want[:3] or (
+            device == "cuda" and lock_hops != [expect] * len(lock_hops)):
+        raise AssertionError(f"lockstep streaming: tokens {toks}, K1 "
+                             f"{lock_hops}")
+    return ({"serve_continuous_hop": hops,
+             "serve_stream_batch_hop": lock_hops},
+            (widest[1], widest[2]))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_cli_phase(device="cuda", config="configs/default.yaml",
+                    extra=("--override", "model.max_speech_tokens=30",
+                           "--override", "model.lm.qwen.quantized=true")):
+    """Phase 17: cli/serve.py as a subprocess on 127.0.0.1, once per
+    scheduler: /healthz, a 3 s tone speaker registered, 3 concurrent
+    /synthesize requests each answered with a 24 kHz mono 16-bit WAV, a
+    bad payload answered with 400."""
+    import base64
+    import io
+    import urllib.error
+    import urllib.request
+    import wave
+    from concurrent.futures import ThreadPoolExecutor
+
+    repo = Path(__file__).resolve().parent
+    tone = (0.5 * np.sin(2 * np.pi * 220 * np.arange(48000) / 16000))
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((tone * 32767).astype(np.int16).tobytes())
+    speaker = {"id": "tone", "prompt_text": "a tone",
+               "wav_b64": base64.b64encode(buf.getvalue()).decode()}
+
+    def post(url, payload):
+        data = payload if isinstance(payload, bytes) else \
+            json.dumps(payload).encode()
+        req = urllib.request.Request(url, data=data, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    for scheduler in ("window", "continuous"):
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        cmd = [sys.executable, "-m", "minimax_speech_torch.cli.serve",
+               "--random_init", "--no_warm", "--config", str(repo / config),
+               "--device", device, "--port", str(port), "--scheduler",
+               scheduler, *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve ({scheduler}) exited "
+                                         f"{proc.returncode}: "
+                                         f"{proc.stdout.read()[-3000:]}")
+                try:
+                    with urllib.request.urlopen(base + "/healthz",
+                                                timeout=5) as r:
+                        if r.status == 200 and r.read() == b"ok":
+                            break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"serve ({scheduler}) not up")
+                time.sleep(0.5)
+            up = time.perf_counter() - t0
+            code, _ = post(base + "/register_speaker", speaker)
+            if code != 200:
+                raise AssertionError(f"register_speaker answered {code}")
+            texts = ["Hello there, this is a test.", "A second request.",
+                     "And a third one, somewhat longer than the others."]
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(3) as pool:
+                answers = list(pool.map(lambda t: post(
+                    base + "/synthesize", {"text": t, "speaker": "tone"}),
+                    texts))
+            secs = time.perf_counter() - t1
+            frames = []
+            for code, body in answers:
+                if code != 200:
+                    raise AssertionError(f"synthesize answered {code}: "
+                                         f"{body[:200]!r}")
+                with wave.open(io.BytesIO(body)) as w:
+                    fmt = (w.getframerate(), w.getnchannels(),
+                           w.getsampwidth())
+                    frames.append(w.getnframes())
+                if fmt != (24000, 1, 2) or frames[-1] == 0:
+                    raise AssertionError(f"synthesize gave a {fmt} wav of "
+                                         f"{frames[-1]} frames")
+            bad = post(base + "/register_speaker",
+                       {"id": "x", "wav_b64": "***"})[0], \
+                post(base + "/synthesize", b"{not json")[0]
+            if bad != (400, 400):
+                raise AssertionError(f"bad payloads answered {bad}")
+            log(f"[serve-cli] {scheduler}: up in {up:.1f} s; 3 concurrent "
+                f"requests answered 200 in {secs:.2f} s, 24 kHz mono int16 "
+                f"WAVs of {frames} samples; bad payloads answered {bad}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def warm_phase(pipe, card: str, n_tokens: int = 20):
+    """Phase 17, last: warm_serving once in-process on the full-width
+    pipeline, its generated length cut to n_tokens."""
+    from minimax_speech_torch.infer.api import TTS
+    from minimax_speech_torch.infer.warmup import warm_serving
+
+    pipe.cfg = fixed_length(pipe.cfg, n_tokens)
+    tts = TTS(pipeline=pipe)
+    tim = warm_serving(tts, scheduler="window", max_batch=4, verbose=False)
+    log(f"[warmup] {card} | warm_serving (window, max_batch 4, "
+        f"{n_tokens} tokens per utterance): "
+        f"{ {k: round(v, 3) for k, v in tim.items()} }; speakers left "
+        f"{tts.list_available_spks()}")
+    if tts.list_available_spks():
+        raise AssertionError("warm_serving left its speaker registered")
+
+
+def serve_cross_check(pipes, device="cuda", n_tokens: int = 40):
+    """Phase 18: reduced depth (float32 LM, 2 layers), the same weights
+    and noise on `device` and on the CPU: BatchSynthesizer token ids and
+    PCM, ContinuousBatcher bursts with a request joining mid-decode, and
+    BistreamDecoder ids."""
+    import torch
+
+    from minimax_speech_torch.infer.bistream import BistreamDecoder
+    from minimax_speech_torch.infer.continuous import ContinuousBatcher
+    from minimax_speech_torch.infer.serving import BatchSynthesizer
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.ops import sampling as sampling_ops
+
+    cfg, cpu, dev = pipes[:3]
+    cfg = fixed_length(cfg, n_tokens)
+    cpu.cfg = dev.cfg = cfg
+    reqs = serve_requests(cpu, [(2.0, 6), (3.0, 9), (2.5, 12)])
+    g_top, g_fb = llm_mod.decode_noise(cfg.lm, n_tokens, 4,
+                                       torch.Generator().manual_seed(18))
+    ids, pcm = {}, {}
+    generate = llm_mod.generate
+    for name, pipe in (("cpu", cpu), ("card", dev)):
+        got = []
+
+        def recorded(*a, **kw):
+            out = generate(*a, **kw)
+            got.append([row[row >= 0].tolist()
+                        for row in out[0].cpu().numpy()])
+            return out
+
+        llm_mod.generate = recorded
+        try:
+            wavs = BatchSynthesizer(pipe).synthesize_batch(
+                reqs, gumbel_top=g_top, gumbel_fallback=g_fb)
+        finally:
+            llm_mod.generate = generate
+        ids[name] = got[0][:len(reqs)]
+        pcm[name] = [np.round(w * 32767).astype(np.int32) for w in wavs]
+    same = ids["cpu"] == ids["card"]
+    diff = max(int(np.abs(a - b).max()) if a.shape == b.shape else 10 ** 9
+               for a, b in zip(pcm["cpu"], pcm["card"]))
+    log(f"[cross-serve] BatchSynthesizer, 3 requests padded to 4: token ids "
+        f"identical {same} ({[len(x) for x in ids['card']]} tokens); PCM max "
+        f"|diff| {diff} LSB (tol {PCM_TOL_LSB})")
+    if not same or diff > PCM_TOL_LSB:
+        raise AssertionError("batched synthesis differs card vs CPU")
+
+    def noise(burst, first_step, n):  # the same tables on both devices
+        return llm_mod.decode_noise(cfg.lm, n, 3,
+                                    torch.Generator().manual_seed(100 + burst))
+
+    bursts = {}
+    for name, pipe in (("cpu", cpu), ("card", dev)):
+        cb = ContinuousBatcher(pipe, slots=3, noise=noise)
+        for r in reqs[:2]:
+            cb.submit(r)
+        rows = []
+        for i in range(n_tokens // cb.token_hop + 2):
+            if i == 1:
+                cb.submit(reqs[2])  # joins at its own position
+            cb._admit()
+            rows.append(cb._burst(cb.token_hop)[0])
+        bursts[name] = np.concatenate(rows, axis=1)
+    same_c = np.array_equal(bursts["cpu"], bursts["card"])
+    log(f"[cross-serve] ContinuousBatcher, 3 lanes, a request joining after "
+        f"the first burst: token ids identical {same_c} "
+        f"({int((bursts['card'] >= 0).sum())} tokens)")
+    if not same_c:
+        raise AssertionError("continuous batching differs card vs CPU")
+
+    chunks = [np.random.default_rng(19).integers(0, cfg.lm.qwen.vocab_size, 4)
+              for _ in range(6)]
+    out = {}
+    for name, pipe in (("cpu", cpu), ("card", dev)):
+        def bnoise(burst, n):
+            g = torch.Generator().manual_seed(200 + burst)
+            return (sampling_ops.gumbel((n, cfg.lm.top_k), g),
+                    sampling_ops.gumbel((n, cfg.lm.vocab), g))
+        dec = BistreamDecoder(pipe.lm, max_steps=n_tokens,
+                              device="cpu" if name == "cpu" else device)
+        out[name] = list(dec.generate(
+            iter(chunks), reqs[0].prompt_text_tokens,
+            reqs[0].prompt_speech_tokens[:30],
+            torch.as_tensor(reqs[0].lm_spk[None]), noise=bnoise))
+    log(f"[cross-serve] BistreamDecoder: token ids identical "
+        f"{out['cpu'] == out['card']} ({len(out['card'])} tokens)")
+    if out["cpu"] != out["card"] or not out["cpu"]:
+        raise AssertionError("bistream decoding differs card vs CPU")
 
 
 def k2_checks(lm_shape, kv_lm):
@@ -1413,6 +1870,23 @@ def main() -> int:
             gen, (bb, h, tt, d), kv_s, chunk)
     stream_cross_check(reduced_pipes(cfg, inputs), inputs)
     synth_cli_phase()
+
+    # serving: phases 15 and 16, then 14 at the shapes they gave K1
+    pipe = TTSPipeline.from_random(fixed_length(cfg, SERVE_TOKENS), seed=0,
+                                   device="cuda")
+    pipe.lm.to(torch.bfloat16)
+    reqs = serve_requests(pipe, SERVE_SPECS)
+    batch_launches, batch_seen = serve_batch_phase(pipe, reqs[:4], card)
+    hop_launches, hop_seen = serve_stream_phase(pipe, reqs, card)
+    record["launches_by_path"].update(serve_batch=batch_launches[0],
+                                      **hop_launches)
+    record["at_serving_shapes"] = serving_k1_phase(
+        batch_seen, hop_seen, h, d, cfg.flow.unet.static_chunk_size)
+    serve_cli_phase()
+    warm_phase(pipe, card)
+    del pipe
+    torch.cuda.empty_cache()
+    serve_cross_check(reduced_pipes(cfg, inputs))
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))

@@ -11,7 +11,8 @@ Port of minimax_speech_tpu/infer/pipeline.py, latent output mode
   5. DAC-VAE decode -> trimmed int16 PCM, cut on the device
 
 Everything runs on one device, CUDA unless the caller passes
-device="cpu". `synthesize_fused` copies to the host once, at the end;
+device="cpu". `synthesize_fused` copies to the host once, at the end; it
+is `fused_batch`, which batched serving runs (infer/serving.py), at B = 1.
 `synthesize` (the unfused path) copies the generated tokens to the host
 between the LM and the flow. Streaming is infer/session.py. With
 `lm.qwen.quantized` the LM's projections are W8A8 (models/qwen2.py), and
@@ -208,64 +209,86 @@ class TTSPipeline:
                          gumbel_top=None, gumbel_fallback=None,
                          return_timings: bool = False):
         """One utterance: LM decode -> flow -> DAC decode -> trim -> int16,
-        on the device, one copy to the host at the end. prompt_feat:
-        (Tp, 80) latents. The decode noise is `gumbel_top` /
-        `gumbel_fallback` (see llm.generate), else drawn from
-        `generator`. Returns float32 audio (PCM / 32767)."""
+        on the device, one copy to the host at the end: `fused_batch` at
+        B = 1. prompt_feat: (Tp, 80) latents. The decode noise is
+        `gumbel_top` / `gumbel_fallback` (see llm.generate), else drawn
+        from `generator`. Returns float32 audio (PCM / 32767)."""
         cfg = self.cfg
-        dev = self.device
         t0 = time.perf_counter()
-
         n_prompt = len(prompt_speech_tokens)
-        pt_pad = next_bucket(n_prompt, buckets=(16, 32, 64, 128, 256))
-        ptoks = np.zeros((1, pt_pad), np.int64)
+        ptoks = np.zeros((1, next_bucket(n_prompt,
+                                         buckets=(16, 32, 64, 128, 256))),
+                         np.int64)
         ptoks[0, :n_prompt] = prompt_speech_tokens
         pf_pad = next_bucket(prompt_feat.shape[0],
                              buckets=(16, 32, 64, 128, 256, 512))
         pf = np.zeros((1, pf_pad, cfg.flow.output_size), np.float32)
         pf[0, : prompt_feat.shape[0]] = prompt_feat
-        pfl = prompt_feat.shape[0]
-
         src, tok, plen, min_len, max_len = decode_plan(
             cfg, text_tokens, prompt_text_tokens, prompt_speech_tokens)
-        out, count = llm_mod.generate(
-            self.lm, src, tok, plen, lm_spk, min_len, max_len,
-            max_steps=cfg.max_speech_tokens, gumbel_top=gumbel_top,
-            gumbel_fallback=gumbel_fallback, generator=generator,
-            device=dev)
-        # the decode loop's stop test synchronizes every step, so the LM's
-        # work is done when it returns
-        t_lm = time.perf_counter()
-        count = count.long()
-        gen = torch.clamp(out.long(), min=0)  # -1 pads -> 0, masked by length
-        # compact [prompt | generated]: position j holds the prompt token
-        # while j < n_prompt, else gen[j - n_prompt]
-        prompt_tok = torch.as_tensor(ptoks, device=dev)
-        prompt_len = torch.tensor([n_prompt], device=dev)
-        j = torch.arange(pt_pad + gen.shape[1], device=dev)[None]
-        pv = torch.gather(prompt_tok, 1,
-                          torch.clamp(j, max=pt_pad - 1).expand(1, -1))
-        gi = torch.clamp(j - prompt_len[:, None], 0, gen.shape[1] - 1)
-        gv = torch.gather(gen, 1, gi)
-        compact = torch.where(j < prompt_len[:, None], pv, gv)
-        feat = flow_inference_batched(
-            self.flow, compact, prompt_len + count,
-            torch.as_tensor(pf, device=dev), torch.tensor([pfl], device=dev),
-            flow_emb, self.noise, device=dev)
-        wav = self.dac.decode(feat.float()).reshape(1, -1)
-        # trim on the device: each row's own prompt region is cut
-        spf = SAMPLES_PER_FRAME
-        gen_samples = min(cfg.max_speech_tokens * cfg.token_latent_ratio
-                          * spf, wav.shape[1])
-        start = min(pfl * spf, wav.shape[1] - gen_samples)
-        wav = wav[:, start: start + gen_samples]
-        pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
-        pcm, count = pcm.cpu().numpy(), count.cpu().numpy()
+        pcm, count, lm_s = self.fused_batch(
+            src, tok, plen, lm_spk, min_len, max_len, ptoks, [n_prompt], pf,
+            [prompt_feat.shape[0]], flow_emb, generator=generator,
+            gumbel_top=gumbel_top, gumbel_fallback=gumbel_fallback)
         n = int(count[0])
-        wav = pcm[0, : n * cfg.token_latent_ratio * spf].astype(
+        wav = pcm[0, : n * cfg.token_latent_ratio * SAMPLES_PER_FRAME].astype(
             np.float32) / 32767.0
         t1 = time.perf_counter()
         if return_timings:
-            return wav, {"total_s": t1 - t0, "lm_s": t_lm - t0, "tokens": n,
+            return wav, {"total_s": t1 - t0, "lm_s": lm_s, "tokens": n,
                          "audio_s": len(wav) / cfg.sample_rate}
         return wav
+
+    @torch.no_grad()
+    def fused_batch(self, src, tok, plen, lm_spk, min_len, max_len,
+                    prompt_tokens, prompt_tok_len, prompt_feat,
+                    prompt_feat_len, flow_emb,
+                    generator: torch.Generator | None = None,
+                    gumbel_top=None, gumbel_fallback=None):
+        """B utterances on the device, the twin of the JAX package's
+        `_e2e`: the LM decode of the padded plans src/tok (B, P) with true
+        lengths plen and bounds min_len/max_len (B,); each row's [prompt |
+        generated] tokens compacted by a gather (prompt_tokens (B, Pt),
+        true lengths prompt_tok_len); one flow_inference_batched call with
+        the ragged prompt latents prompt_feat (B, Tp, 80) / prompt_feat_len
+        and flow_emb (B, 192); DAC decode; row i trimmed from its own
+        prompt_feat_len[i] frames (the start clamped as dynamic_slice
+        clamps it) to int16. Noise as llm.generate, for B rows. Returns
+        (PCM (B, S) int16, token counts (B,), both numpy; the LM's host
+        seconds): row i's audio is its first counts[i] * 960 samples."""
+        cfg = self.cfg
+        dev = self.device
+        t0 = time.perf_counter()
+        out, count = llm_mod.generate(
+            self.lm, src, tok, plen, torch.as_tensor(lm_spk, device=dev),
+            min_len, max_len, max_steps=cfg.max_speech_tokens,
+            gumbel_top=gumbel_top, gumbel_fallback=gumbel_fallback,
+            generator=generator, device=dev)
+        # the decode loop's stop test synchronizes every step, so the LM's
+        # work is done when it returns
+        lm_s = time.perf_counter() - t0
+        count = count.long()
+        gen = torch.clamp(out.long(), min=0)  # -1 pads -> 0, masked by length
+        ptoks = torch.as_tensor(np.asarray(prompt_tokens), device=dev).long()
+        ptl = torch.as_tensor(np.asarray(prompt_tok_len), device=dev).long()
+        pfl = torch.as_tensor(np.asarray(prompt_feat_len), device=dev).long()
+        b, p_max = ptoks.shape
+        # position j of row i holds prompt_tokens[i, j] while j <
+        # prompt_tok_len[i], else gen[i, j - prompt_tok_len[i]]
+        j = torch.arange(p_max + gen.shape[1], device=dev)[None].expand(b, -1)
+        pv = torch.gather(ptoks, 1, torch.clamp(j, max=p_max - 1))
+        gv = torch.gather(gen, 1, torch.clamp(j - ptl[:, None], 0,
+                                              gen.shape[1] - 1))
+        compact = torch.where(j < ptl[:, None], pv, gv)
+        feat = flow_inference_batched(
+            self.flow, compact, ptl + count, prompt_feat, pfl,
+            torch.as_tensor(flow_emb, device=dev), self.noise, device=dev)
+        wav = self.dac.decode(feat.float()).reshape(b, -1)
+        spf = SAMPLES_PER_FRAME
+        gen_samples = min(cfg.max_speech_tokens * cfg.token_latent_ratio
+                          * spf, wav.shape[1])
+        start = torch.clamp(pfl * spf, 0, wav.shape[1] - gen_samples)
+        wav = torch.gather(wav, 1, start[:, None] + torch.arange(
+            gen_samples, device=dev)[None])
+        pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
+        return pcm.cpu().numpy(), count.cpu().numpy(), lm_s

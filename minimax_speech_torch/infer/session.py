@@ -23,7 +23,6 @@ from minimax_speech_torch.models import llm as llm_mod
 from minimax_speech_torch.models import qwen2
 from minimax_speech_torch.models.flow import flow_inference
 from minimax_speech_torch.ops import masks as mask_ops
-from minimax_speech_torch.ops import sampling as sampling_ops
 from minimax_speech_torch.utils.device import check_on, resolve_device
 
 
@@ -118,23 +117,16 @@ class TokenStream:
             return np.zeros((0,), np.int32), True
         cfg = self.model.cfg
         eos = cfg.eos_token
-        ids = torch.arange(cfg.vocab, device=self.device)[None]
         out = []
         for _ in range(n):
-            logp = torch.log_softmax(self._logits.float(), dim=-1)
-            logp = logp.masked_fill(ids > eos, float("-inf"))
-            logp = logp.masked_fill(
-                (ids == eos) & (self._count < self._min_len)[:, None],
-                float("-inf"))
-            tok = sampling_ops.ras_sample_batch_pregen(
-                self._g_top[self._step], self._g_fb[self._step], logp,
-                self._recent, cfg.top_p, cfg.top_k, cfg.ras_win, cfg.ras_tau)
+            tok = llm_mod.sample_step(cfg, self._logits, self._count,
+                                      self._min_len, self._recent,
+                                      self._g_top[self._step],
+                                      self._g_fb[self._step])
             self._finished |= (tok == eos) | (self._count >= self._max_len)
             emit = ~self._finished
             out.append(torch.where(emit, tok, torch.full_like(tok, -1)))
-            self._recent = torch.where(
-                emit[:, None], torch.cat([self._recent[:, 1:], tok[:, None]],
-                                         dim=1), self._recent)
+            self._recent = llm_mod.push_recent_rows(self._recent, tok, emit)
             pos = self._prompt_len + self._count
             self._count += emit.long()
             emb1 = self.model.embed_speech_token(

@@ -178,21 +178,24 @@ class FlowModel(nn.Module):
 @torch.no_grad()
 def flow_inference_batched(model: FlowModel, token, token_len, prompt_feat,
                            prompt_feat_len, embedding, noise,
+                           streaming: bool = False,
                            device=None) -> torch.Tensor:
     """Latents for the whole frame sequence (B, 2*Tt, 80) given ragged
     prompts; callers cut each row's generated region
     [prompt_feat_len[i], token_len[i] * ratio). noise: (1 or B, >= 2*Tt,
-    80), the fixed table."""
+    80), the fixed table. streaming: chunk masks in the encoder and the
+    UNet (K1's chunk mode), as the batched streaming servers run it."""
     c = model.cfg
     token, token_len, prompt_feat, embedding, noise = _on_device(
         model, device, token, token_len, prompt_feat, embedding, noise)
     prompt_feat_len = torch.as_tensor(prompt_feat_len,
                                       device=token.device).long()
     mu, mask, spks, conds = model.prepare_inference(
-        token, token_len, prompt_feat, embedding,
+        token, token_len, prompt_feat, embedding, streaming=streaming,
         prompt_feat_len=prompt_feat_len)
     feat = cfm.solve_euler(model.estimate, _start_noise(model, noise, mu),
-                           mu, mask, spks, conds, c.n_timesteps, c.cfm)
+                           mu, mask, spks, conds, c.n_timesteps, c.cfm,
+                           streaming=streaming)
     return latent_denormalize(c, feat)
 
 

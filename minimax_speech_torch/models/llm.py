@@ -6,12 +6,15 @@ materialized with three gathers and a select), speaker conditioning
 (multi-crop averaged, or an external x-vector), the training forward
 (label-smoothed CE and accuracy over the plan's targets) with the host
 plan builder `build_lm_plan`, prefill into a preallocated KV cache, and
-the RAS decode loop of `generate` with pregenerated noise.
+the RAS decode loop of `generate` with pregenerated noise; for serving,
+decode steps with a cache slot per row (`decode_step_rows`) and block
+appends mid-decode (`extend`), and the sampling step the serving
+decoders share (`sample_step`, `NoiseFn`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -147,8 +150,57 @@ class SpeechLM(nn.Module):
                           slot)
         return self.llm_decoder(hidden[:, -1])
 
+    def decode_step_rows(self, emb_1, pos, valid, cache, slots, active):
+        """One step with a cache slot per row (continuous batching: lanes
+        that joined at different times sit at different positions).
+        emb_1 (B, 1, C); pos, slots (B,); active (B,) bool: only active
+        rows mark their slot valid, so a parked lane's context never
+        grows. `valid` (B, K) is updated in place. Returns logits (B, V)."""
+        rows = torch.arange(emb_1.shape[0], device=valid.device)
+        valid[rows, slots] = valid[rows, slots] | active
+        hidden = self.llm(emb_1, pos[:, None], qwen2.cache_bias(valid), cache,
+                          slots)
+        return self.llm_decoder(hidden[:, -1])
+
     def embed_speech_token(self, tok):
         return self.speech_embedding(tok)
+
+    def embed_text_token(self, tok):
+        return self.text_embedding(tok)
+
+    def extend(self, emb, pos, n_true, valid, cache, slot):
+        """Append the block `emb` (B, n, C) at true positions pos (B, n) to
+        the cache at slots [slot, slot + n): the bistream path appends text
+        and speech chunks mid-decode. Only each row's first n_true (B,)
+        tokens are real; the padded tail stays invalid. The block sees the
+        valid context and itself causally. slot: an int, or with n == 1 a
+        (B,) tensor (a slot that lives on the device). `valid` (B, K) is
+        updated in place. Returns the logits at the last true row (B, V)."""
+        b, n, _ = emb.shape
+        k = valid.shape[1]
+        dev = valid.device
+        if torch.is_tensor(slot):
+            start = slot.to(dev).reshape(-1, 1)              # (B, 1)
+            offset = slot.to(dev).reshape(-1)
+        else:
+            if slot + n > k:
+                raise ValueError(f"extend of {n} at slot {slot} overflows the "
+                                 f"cache of {k} slots")
+            start = torch.full((b, 1), slot, device=dev)
+            offset = slot
+        n_true = torch.as_tensor(n_true, device=dev).long().reshape(-1, 1)
+        k_idx = torch.arange(k, device=dev)[None]            # (1, K)
+        valid |= (k_idx >= start) & (k_idx < start + n_true)
+        rel = (k_idx - start)[:, None, :]                    # (B, 1, K)
+        q_idx = torch.arange(n, device=dev)[None, :, None]   # (1, n, 1)
+        self_region = (rel >= 0) & (rel < n)
+        allowed = (valid[:, None, :] & ~self_region) | (
+            self_region & (rel <= q_idx) & (rel < n_true[:, :, None]))
+        bias = torch.where(allowed, 0.0, -1e10)[:, None].float()
+        hidden = self.llm(emb, pos, bias, cache, offset)
+        last = hidden[torch.arange(b, device=dev),
+                      torch.clamp(n_true[:, 0] - 1, min=0)]
+        return self.llm_decoder(last)
 
 
 def quantize_lm(lm: SpeechLM, act_quant: bool = True) -> SpeechLM:
@@ -247,6 +299,45 @@ def decode_noise(cfg: LMConfig, max_steps: int, batch: int,
                                 device))
 
 
+# The decode noise of a burst-driven decoder (the serving classes):
+# noise(burst, first_step, n) -> the two tables of decode_noise for n
+# steps, (n, B, top_k) and (n, B, V). `burst` counts the decoder's bursts
+# from 0 and `first_step` is the decoder's step index at the burst's
+# first step, so a caller can rebuild any keyed noise scheme.
+NoiseFn = Callable[[int, int, int], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def generator_noise(cfg: LMConfig, batch: int,
+                    generator: torch.Generator | None = None,
+                    device=None) -> NoiseFn:
+    """A NoiseFn that draws fresh tables from `generator`."""
+    return lambda burst, first_step, n: decode_noise(cfg, n, batch, generator,
+                                                     device)
+
+
+def sample_step(cfg: LMConfig, logits, count, min_len, recent, g_top, g_fb):
+    """One RAS draw per row from the decoder's logits (B, V): ids above
+    eos always masked, eos masked while count < min_len (B,). g_top
+    (B, top_k), g_fb (B, V). Returns (B,) int32."""
+    eos = cfg.eos_token
+    ids = torch.arange(logits.shape[-1], device=logits.device)[None]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = logp.masked_fill(ids > eos, float("-inf"))
+    logp = logp.masked_fill((ids == eos) & (count < min_len)[:, None],
+                            float("-inf"))
+    return sampling_ops.ras_sample_batch_pregen(
+        g_top, g_fb, logp, recent, cfg.top_p, cfg.top_k, cfg.ras_win,
+        cfg.ras_tau)
+
+
+def push_recent_rows(recent, toks, emit):
+    """The RAS window (B, W) of each emitting row shifted left with its
+    new token appended; the other rows unchanged."""
+    return torch.where(emit[:, None],
+                       torch.cat([recent[:, 1:], toks[:, None]], dim=1),
+                       recent)
+
+
 @torch.no_grad()
 def generate(model: SpeechLM, src_type, tok_id, prompt_len, spk_emb,
              min_len, max_len, max_steps: int = 512,
@@ -293,27 +384,19 @@ def generate(model: SpeechLM, src_type, tok_id, prompt_len, spk_emb,
     valid = torch.cat([pad, torch.zeros((b, max_steps), dtype=torch.bool,
                                         device=dev)], dim=1)
 
-    ids = torch.arange(cfg.vocab, device=dev)[None]
     out = torch.full((b, max_steps), -1, dtype=torch.int32, device=dev)
     recent = torch.full((b, cfg.ras_win), -1, dtype=torch.int32, device=dev)
     count = torch.zeros((b,), dtype=torch.int64, device=dev)
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
     step = 0
     while step < max_steps and not bool(finished.all()):
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        logp = logp.masked_fill(ids > eos, float("-inf"))
-        logp = logp.masked_fill((ids == eos) & (count < min_len)[:, None],
-                                float("-inf"))
-        toks = sampling_ops.ras_sample_batch_pregen(
-            gumbel_top[step], gumbel_fallback[step], logp, recent, cfg.top_p,
-            cfg.top_k, cfg.ras_win, cfg.ras_tau)
+        toks = sample_step(cfg, logits, count, min_len, recent,
+                           gumbel_top[step], gumbel_fallback[step])
         now_eos = (toks == eos) | (count >= max_len)
         finished = finished | now_eos
         emit = ~finished
         out[:, step] = torch.where(emit, toks, torch.full_like(toks, -1))
-        recent = torch.where(emit[:, None],
-                             torch.cat([recent[:, 1:], toks[:, None]], dim=1),
-                             recent)
+        recent = push_recent_rows(recent, toks, emit)
         pos = prompt_len + count  # true position of the token being fed
         count = count + emit.to(count.dtype)
         emb1 = model.embed_speech_token(

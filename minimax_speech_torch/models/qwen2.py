@@ -193,8 +193,11 @@ class Qwen2Attention(nn.Module):
         """x: (B, T, C); positions: (B, T) true token positions;
         attn_bias: (B, 1, T, K) additive, float32; cache: optional (k, v)
         each (B, max_len, n_kv, d) for this layer, written in place at
-        slots [cache_offset, cache_offset + T). With attn_bias None,
-        `lengths` (B,) selects the training attention (K2)."""
+        slots [cache_offset, cache_offset + T), or, when cache_offset is a
+        (B,) tensor and T is 1, each row at its own slot. JAX clamps an
+        offset past the cache; on CUDA an index past it is a device-side
+        assert, so callers check their offsets on the host. With attn_bias
+        None, `lengths` (B,) selects the training attention (K2)."""
         c = self.cfg
         b, t, _ = x.shape
         h, kvh, d = c.n_heads, c.n_kv_heads, c.head_dim
@@ -212,8 +215,15 @@ class Qwen2Attention(nn.Module):
 
         if cache is not None:
             ck, cv = cache
-            ck[:, cache_offset: cache_offset + t] = k
-            cv[:, cache_offset: cache_offset + t] = v
+            if torch.is_tensor(cache_offset) and cache_offset.dim() == 1:
+                if t != 1:
+                    raise ValueError(f"per-row cache offsets take T=1, got {t}")
+                rows = torch.arange(b, device=ck.device)
+                ck[rows, cache_offset] = k[:, 0]
+                cv[rows, cache_offset] = v[:, 0]
+            else:
+                ck[:, cache_offset: cache_offset + t] = k
+                cv[:, cache_offset: cache_offset + t] = v
             keys, values = ck, cv
         else:
             keys, values = k, v

@@ -1,8 +1,8 @@
 """Nucleus and repetition-aware (RAS) sampling from pregenerated noise.
 
-Port of ops/sampling.py:nucleus_gumbel_max and ras_sample_batch_pregen
-of the JAX package. The noise arrives as arguments, so the same tables
-give the same ids in both packages.
+Port of ops/sampling.py:nucleus_gumbel_max, ras_sample_batch_pregen,
+ras_sample and push_recent of the JAX package. The noise arrives as
+arguments, so the same tables give the same ids in both packages.
 """
 from __future__ import annotations
 
@@ -45,3 +45,21 @@ def ras_sample_batch_pregen(g_top: torch.Tensor, g_fallback: torch.Tensor,
     need = rep_num >= win_size * tau_r
     fallback = torch.argmax(logp.float() + g_fallback, dim=-1).to(torch.int32)
     return torch.where(need, fallback, top_ids)
+
+
+def ras_sample(g_top: torch.Tensor, g_fallback: torch.Tensor,
+               logp: torch.Tensor, recent: torch.Tensor, top_p: float = 0.8,
+               top_k: int = 25, win_size: int = 10,
+               tau_r: float = 0.1) -> torch.Tensor:
+    """RAS for one row: logp (V,), recent (W,), g_top (top_k,) and
+    g_fallback (V,) the Gumbel draws behind JAX's two categorical calls
+    (jax.random.categorical(k, x) is argmax(x + gumbel(k, x.shape))).
+    Returns a 0-d int32 tensor."""
+    return ras_sample_batch_pregen(g_top[None], g_fallback[None], logp[None],
+                                   recent[None], top_p, top_k, win_size,
+                                   tau_r)[0]
+
+
+def push_recent(recent: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    """Shift the ring buffer (W,) left and append the newest token."""
+    return torch.cat([recent[1:], token.reshape(1).to(recent.dtype)])
