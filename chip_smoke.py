@@ -39,12 +39,13 @@ a line; any failure ends the run with a non-zero exit:
      the LM shape in fp32 causal, as CUDA-graph replays and eager calls;
   7. Stage-1 LM training at the full width of configs/default.yaml
      (random weights, seed 0, fp32, TF32 off) on a fixed batch of 8
-     plans padded to 512: 2 warm-up and 5 timed train steps, K2's
-     launches counted per step, the loss lower after 10 steps, 2 bf16
-     steps;
-  8. the training entry point, cli/train.main, at full width for one
-     epoch on a synthetic corpus: metrics, a checkpoint, and a second
-     call that resumes at the saved step;
+     plans padded to 512: 2 warm-up and 5 timed train steps, one
+     profiled step, the loss lower after 10 steps, 2 bf16 steps; every
+     counted step must launch K2 24 times forward and 24 backward (one
+     per layer) and K1 never;
+  8. the training entry point, cli/train.main --model llm, at full width
+     for one epoch on a synthetic corpus: metrics, a checkpoint, and a
+     second call that resumes at the saved step;
   9. LM training at reduced depth (2 layers) on the card and on the CPU
      with the same weights and batch: loss, accuracy, grad norm and the
      parameters after 3 steps within stated tolerances;
@@ -86,7 +87,31 @@ a line; any failure ends the run with a non-zero exit:
  18. reduced depth (float32 LM, 2 layers), card against CPU with the
      same weights and noise: BatchSynthesizer token ids identical and
      PCM within PCM_TOL_LSB, ContinuousBatcher bursts (a request joining
-     mid-decode) and BistreamDecoder token ids identical.
+     mid-decode) and BistreamDecoder token ids identical;
+ 19. K2 at the flow-training shape (8, 8, 512, 64) with phase 20's key
+     lengths, in the UNet's full and chunk-50 modes, fp32 and bf16,
+     forward and dq, dk, dv against its plain version at K2_TOL; kernel,
+     plain and SDPA times, forward and forward+backward, as CUDA-graph
+     replays, beside the bound;
+ 20. Stage-2 flow training at the full width of configs/default.yaml
+     (random weights, seed 0, fp32, TF32 off, AdamW 1e-4, fixed draws)
+     on a fixed padding_flow batch of 8 utterances of 160-256 tokens
+     (T = 512 latent frames): 2 warm-up and 5 timed steps (median
+     step_s, frames/s, peak memory), one profiled step (K2's, the
+     GEMMs' and the convolutions' shares of the device's busy time, the
+     host's idle share), the loss lower after 10 steps; every step must
+     launch K2 56 times forward and 56 backward (one per UNet
+     transformer block) and K1 never, also in one streaming=True step
+     (K2's chunk-50 mode) and 2 bf16 steps;
+ 21. cli/train.main --model flow at full width for one epoch on the
+     synthetic corpus with a cv pass (no grad: K1 only), then a second
+     call that resumes at the saved step;
+ 22. the flow at reduced depth (1 mid UNet stage, 1 + 1 encoder blocks),
+     card against CPU with the same weights, batch and draws, and a
+     float64 CPU run: phase 9's checks, except that the first-step
+     gradients of the UNet's to_q and to_k weights (reached only through
+     K2's dq and dk) are held against the float64 run at K2_GRAD_RTOL;
+     both runs' distances to it are printed.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -94,6 +119,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -158,6 +184,22 @@ TRAIN_LR = 1e-4
 # of each leaf within 1% of lr
 TRAIN_METRIC_RTOL = TRAIN_GRAD_RTOL = 1e-4
 TRAIN_PARAM_TOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_SHARE = 0.05, 1e-6, 1e-3
+# phase 22: the UNet's to_q and to_k weights get their gradient only
+# through K2's dq and dk, which take Delta = rowsum(dO * O) from the
+# forward kernel's output. That output's error shifts every dS of a row
+# alike, and at random weights (near-uniform attention, keys sharing a
+# large mean) such a shift moves dq and dk far more than its size: the
+# leaves' first-step gradients lie 1.36-2.38e-4 of their largest from a
+# float64 run over seeds 5-8, and 1.86-2.52e-5 with Delta from the plain
+# version's output, the CPU's float32 within 2.06e-5; with one TF32
+# product per product (kernels/variants.py tf32x1) 5.28-7.78e-4. So
+# these leaves are held against float64, between the two (H100 80GB
+# HBM3, 700 W; python -m minimax_speech_torch.kernels.variants
+# --flow-grads)
+K2_GRAD_RTOL = 3e-4
+# the flow training batch of phases 19-22: utterances of 160-256 tokens,
+# padded to 256 (T = 512 latent frames), ragged reference mels
+FLOW_BATCH, FLOW_TOKENS, FLOW_REF_FRAMES = 8, (160, 256), 224
 
 
 def log(msg: str):
@@ -274,8 +316,8 @@ def fixed_length(cfg, n_tokens: int):
         max_token_text_ratio=n_tokens / TEXT_LEN)
 
 
-def attn_calls_per_step(cfg) -> int:
-    u = cfg.flow.unet
+def attn_calls_per_step(u) -> int:
+    """UNet attention calls per pass of a UNet with config `u`."""
     stages = 2 * len(u.channels) + u.num_mid_blocks
     return stages * u.n_blocks
 
@@ -707,7 +749,7 @@ def stream_main_path(pipe, inputs, card: str, device="cuda"):
     cfg = pipe.cfg
     args = _prompt(pipe, inputs)
     spf = 480
-    expect = attn_calls_per_step(cfg) * cfg.flow.n_timesteps
+    expect = attn_calls_per_step(cfg.flow.unet) * cfg.flow.n_timesteps
     # K1's launches and the host seconds of each flow call, to its end on
     # the device
     watch = K1Watch(pipe)
@@ -1006,7 +1048,7 @@ def serve_batch_phase(pipe, reqs, card: str, device="cuda"):
 
     cfg = pipe.cfg
     synth = BatchSynthesizer(pipe)
-    expect = attn_calls_per_step(cfg) * cfg.flow.n_timesteps
+    expect = attn_calls_per_step(cfg.flow.unet) * cfg.flow.n_timesteps
     results, launches, shapes = {}, [], {}
     for label, batch in (("B=4", reqs), ("B=1", reqs[-1:])):
         gen = torch.Generator(device=device).manual_seed(15)
@@ -1054,7 +1096,7 @@ def serve_stream_phase(pipe, reqs, card: str, device="cuda"):
     from minimax_speech_torch.kernels import flash_attention as fa
 
     cfg = pipe.cfg
-    expect = attn_calls_per_step(cfg) * cfg.flow.n_timesteps
+    expect = attn_calls_per_step(cfg.flow.unet) * cfg.flow.n_timesteps
     c50 = f"k1 chunk {cfg.flow.unet.static_chunk_size}"
     arrivals = [0.0, 0.0, 0.0, 0.0, 2.0, 4.0]
     cb = ContinuousBatcher(
@@ -1340,18 +1382,31 @@ def serve_cross_check(pipes, device="cuda", n_tokens: int = 40):
 
 def k2_checks(lm_shape, kv_lm):
     """Phase 6: K2 against its plain version, forward and the three
-    gradients; returns K2's record (times at the LM shape, fp32
-    causal)."""
+    gradients, in every mask mode; returns K2's record (times at the LM
+    shape, fp32 causal)."""
     import torch
-    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lm_err = k2_agreement([(lm_shape, kv_lm), ((2, 8, 77, lm_shape[3]),
+                                               [77, 40])], K2_MODES, gen)
+    rec = k2_timing(gen, lm_shape, kv_lm, "causal")
+    return {"name": "splash_attention", "route": "cuda",
+            "source": "minimax_speech_torch/csrc/splash_attention.cu",
+            "replaces": "minimax_speech_tpu/kernels/splash.py:92",
+            "max_abs_err": lm_err, **rec}
+
+
+def k2_agreement(cases, modes, gen) -> float:
+    """K2 against its plain version on random q, k, v, dO for each (shape,
+    kv_len) case, in each mask mode of `modes` (name -> (chunk, left)),
+    fp32 and bf16, output and dq, dk, dv at K2_TOL; fails on any
+    disagreement. Returns the largest fp32 error of the first case's
+    first mode."""
+    import torch
 
     from minimax_speech_torch.kernels import splash
-    from minimax_speech_torch.utils.device import graph_ms
 
-    b, h, t, d = lm_shape
-    cases = [(lm_shape, kv_lm), ((2, 8, 77, d), [77, 40])]
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    lm_err = None
+    first_err = None
 
     def run(fn, q, k, v, do, lens, chunk, left):
         x = [a.clone().requires_grad_() for a in (q, k, v)]
@@ -1366,7 +1421,7 @@ def k2_checks(lm_shape, kv_lm):
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
             q, k, v, do = (x.to(dtype) for x in base)
-            for mname, (chunk, left) in K2_MODES.items():
+            for mname, (chunk, left) in modes.items():
                 saved = dict(splash.launches)
                 ours = run(splash.splash_chunk_attention, q, k, v, do, lens,
                            chunk, left)
@@ -1391,7 +1446,7 @@ def k2_checks(lm_shape, kv_lm):
                     ok &= need <= atol
                     parts.append(f"{errs[-1]:.2e}/{need:.1e}/"
                                  f"{float(r.abs().median()):.1e}")
-                log(f"[k2] T={shape[2]} kv={list(kv)} {dname:8s} "
+                log(f"[k2] {tuple(shape)} kv={list(kv)} {dname:8s} "
                     f"{mname:13s} out,dq,dk,dv max_err/need_atol/median|ref| "
                     f"{' '.join(parts)} (rounded-O Delta shift dq/dk max "
                     f"{float(dq_shift.abs().max()):.1e}/"
@@ -1402,17 +1457,29 @@ def k2_checks(lm_shape, kv_lm):
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     failed.append(f"{shape} {dname} {mname} errs {errs}")
-                if shape == lm_shape and dname == "float32" \
-                        and mname == "causal":
-                    lm_err = max(errs)
+                if first_err is None:
+                    first_err = max(errs)
     if failed:
         raise AssertionError(f"K2 disagrees: {failed}")
+    return first_err
 
-    # times at the LM training shape, fp32 causal
-    q, k, v, do = (torch.randn(lm_shape, generator=gen, device="cuda")
+
+def k2_timing(gen, shape, kv, mode: str) -> dict:
+    """K2, its plain version and torch's SDPA with the same boolean mask
+    at one shape and mask mode, fp32, forward and forward+backward, as
+    CUDA-graph replays, and eager wrapper calls; the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from minimax_speech_torch.kernels import splash
+    from minimax_speech_torch.utils.device import graph_ms
+
+    b, h, t, d = shape
+    chunk, left = K2_MODES[mode]
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                    for _ in range(4))
-    lens = torch.tensor(kv_lm, device="cuda", dtype=torch.int32)
-    mask = splash.visible_mask(t, lens, 1, -1)
+    lens = torch.tensor(kv, device="cuda", dtype=torch.int32)
+    mask = splash.visible_mask(t, lens, chunk, left)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
 
     def fwd(fn):
@@ -1421,9 +1488,10 @@ def k2_checks(lm_shape, kv_lm):
     def fwd_bwd(fn):
         return lambda: torch.autograd.grad(fn(qg, kg, vg), (qg, kg, vg), do)
 
-    kernel = lambda a, b_, c: splash.splash_causal_attention(a, b_, c, lens)  # noqa: E731
+    kernel = lambda a, b_, c: splash.splash_chunk_attention(  # noqa: E731
+        a, b_, c, lens, chunk, left)
     plain = lambda a, b_, c: splash.reference_splash_attention(  # noqa: E731
-        a, b_, c, lens, 1, -1)
+        a, b_, c, lens, chunk, left)
     sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
         a, b_, c, attn_mask=mask)
     # the kernels alone on q already scaled (the wrapper's scale is one
@@ -1431,11 +1499,11 @@ def k2_checks(lm_shape, kv_lm):
     # replays; the eager calls beside them show the wrappers' host time
     qs = (q / d ** 0.5).contiguous()
     saved = dict(splash.launches)
-    out, lse = splash._kernel_forward(qs, k, v, lens, 1, -1)
-    times = {"ms": graph_ms(lambda: splash._kernel_forward(qs, k, v, lens,
-                                                           1, -1)),
+    out, lse = splash._kernel_forward(qs, k, v, lens, chunk, left)
+    times = {"ms": graph_ms(lambda: splash._kernel_forward(
+                 qs, k, v, lens, chunk, left)),
              "bwd_ms": graph_ms(lambda: splash._kernel_backward(
-                 qs, k, v, lens, 1, -1, out, lse, do)),
+                 qs, k, v, lens, chunk, left, out, lse, do)),
              "fwd_bwd_ms": graph_ms(fwd_bwd(kernel)),
              "call_ms": cuda_ms(fwd(kernel)),
              "fwd_bwd_call_ms": cuda_ms(fwd_bwd(kernel))}
@@ -1456,7 +1524,7 @@ def k2_checks(lm_shape, kv_lm):
             f"ms; {flops} FLOP ({pairs} visible pairs) in 3xTF32 -> "
             f"{bd[name]['tc_ms']:.4f} ms, on the fp32 SIMT pipes -> "
             f"{bd[name]['simt_ms']:.4f} ms")
-    log(f"[k2] LM shape {tuple(lm_shape)} kv={list(kv_lm)} fp32 causal, "
+    log(f"[k2] shape {tuple(shape)} kv={list(kv)} fp32 {mode}, "
         f"CUDA-graph replays: kernel fwd {times['ms']:.4f} ms, bwd (dK/dV, "
         f"dQ and the Delta op) {times['bwd_ms']:.4f} ms, fwd+bwd through "
         f"autograd {times['fwd_bwd_ms']:.4f} ms (eager calls "
@@ -1469,17 +1537,14 @@ def k2_checks(lm_shape, kv_lm):
         f"{bd['fwd_bwd']['bound_ms']:.4f} ms (fp32 SIMT bound "
         f"{bd['fwd']['bound_fp32_simt_ms']:.4f} / "
         f"{bd['fwd_bwd']['bound_fp32_simt_ms']:.4f} ms)")
-    return {"name": "splash_attention", "route": "cuda",
-            "source": "minimax_speech_torch/csrc/splash_attention.cu",
-            "replaces": "minimax_speech_tpu/kernels/splash.py:92",
-            "max_abs_err": lm_err, **times,
-            "bound_ms": bd["fwd"]["bound_ms"],
+    return {**times, "bound_ms": bd["fwd"]["bound_ms"],
             "bound_by": bd["fwd"]["bound_by"],
             "bound_fp32_simt_ms": bd["fwd"]["bound_fp32_simt_ms"],
             "fwd_bwd_bound_ms": bd["fwd_bwd"]["bound_ms"],
             "fwd_bwd_bound_by": bd["fwd_bwd"]["bound_by"],
             "fwd_bwd_bound_fp32_simt_ms":
-                bd["fwd_bwd"]["bound_fp32_simt_ms"]}
+                bd["fwd_bwd"]["bound_fp32_simt_ms"],
+            "shape": list(shape), "kv_len": list(kv), "mode": mode}
 
 
 def lm_batch(lm_cfg, batch: int = LM_BATCH, pad_to: int = LM_PAD):
@@ -1509,23 +1574,25 @@ def _on(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def _lm_state(lm_cfg, device, seed=0):
+def _train_state(module, device, seed=0):
+    """`module` initialised from `seed` on `device`, and its train state
+    (AdamW at TRAIN_LR, no warm-up)."""
     import torch
 
-    from minimax_speech_torch.models import llm as llm_mod
     from minimax_speech_torch.train import schedule, steps
     from minimax_speech_torch.utils import params_io
 
-    model = params_io.init_params(llm_mod.SpeechLM(lm_cfg),
-                                  torch.Generator().manual_seed(seed))
+    model = params_io.init_params(module, torch.Generator().manual_seed(seed))
     model.to(device)
     tx = schedule.make_optimizer(lr=TRAIN_LR, warmup_steps=0)
     return model, steps.make_train_state(model, tx)
 
 
-def profile_step(run_step):
-    """One train step under torch.profiler: device busy time against the
-    host's wall time, K2's share, and the kernels that take the most."""
+def profile_step(run_step, what: str = "one train step") -> dict:
+    """`what` under torch.profiler: device busy time against the host's
+    wall time, the shares of K2, GEMMs and convolutions in the busy time,
+    and the kernels that take the most. Returns those numbers, or {} when
+    the profiler sees no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1546,90 +1613,135 @@ def profile_step(run_step):
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_ms = sum(us for _, us, _ in kernels) / 1e3
     if busy_ms == 0:
-        log("[profile] the profiler saw no device time: not measured")
-        return
-    k2_ms = sum(us for name, us, _ in kernels if "splash_" in name) / 1e3
+        log(f"[profile] {what}: the profiler saw no device time: not "
+            f"measured")
+        return {}
+
+    def share(pick) -> float:
+        return sum(us for name, us, _ in kernels if pick(name.lower())) / 1e3
+
+    def is_conv(n: str) -> bool:  # cuDNN names its kernels by pass
+        return any(w in n for w in ("conv", "fprop", "dgrad", "wgrad",
+                                    "cudnn"))
+
+    k2_ms = share(lambda n: "splash_" in n)
+    conv_ms = share(is_conv)
+    gemm_ms = share(lambda n: "gemm" in n and not is_conv(n))
     top = sorted(kernels, key=lambda x: -x[1])[:8]
-    log(f"[profile] one train step: wall {wall_ms:.1f} ms, device busy "
+    log(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), K2 "
-        f"kernels {k2_ms:.2f} ms ({k2_ms / busy_ms:.3f} of busy), "
-        f"{len(kernels)} kernel names")
+        f"kernels {k2_ms:.2f} ms ({k2_ms / busy_ms:.3f} of busy), GEMMs "
+        f"{gemm_ms:.2f} ms ({gemm_ms / busy_ms:.3f}), convolutions "
+        f"{conv_ms:.2f} ms ({conv_ms / busy_ms:.3f}), {len(kernels)} kernel "
+        f"names")
     for name, us, n in top:
         log(f"[profile]   {us / 1e3:8.2f} ms x{n:<5d} {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "k2_ms": k2_ms,
+            "gemm_ms": gemm_ms, "conv_ms": conv_ms}
 
 
-def train_main_path(lm_cfg, batch, card: str, device="cuda", timed=5):
-    """Phase 7 body: 2 warm-up steps, `timed` counted and timed ones, then
-    more to 10 in all, and 2 bf16 steps. Returns K2's launch record."""
+def train_main_path(model, state, make_step, args, final_loss, per_step,
+                    work, what: str, card: str, device="cuda", timed=5,
+                    more=()):
+    """Phases 7 and 20: `model` trained from `state` on the fixed inputs
+    `args` by make_step(**keywords)'s step: 2 warm-up steps, `timed`
+    counted and timed ones, one profiled, more to 10 in all; then one
+    step for each (label, keywords) of `more` and 2 bf16 steps, each
+    counted. On the card every counted step must launch (K2's counts,
+    K1's count) `per_step`; on the CPU none. final_loss(): the loss after
+    the 10 steps, lower than the first step's. `work`: (amount, unit) of
+    one step, for the rate. Returns the launch and time record."""
     import torch
 
-    from minimax_speech_torch.kernels import splash
-    from minimax_speech_torch.train import steps
-
-    model, state = _lm_state(lm_cfg, device)
-    step = steps.make_lm_train_step(model, device=device)
-    b = _on(batch, device)
-    if device == "cuda":
+    on_card = device == "cuda"
+    expect = per_step if on_card else ({"forward": 0, "backward": 0}, 0)
+    step = make_step()
+    if on_card:
         torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
 
-    def one():
+    def one(fn=step):
         nonlocal state
         t0 = time.perf_counter()
-        state, m = step(state, b)
+        state, m = fn(state, *args)
         loss, gn = float(m["loss"]), float(m["grad_norm"])  # syncs
-        if device == "cuda":
+        if on_card:
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         if not (np.isfinite(loss) and np.isfinite(gn)):
-            raise AssertionError(f"train step {state.step}: loss {loss}, "
-                                 f"grad_norm {gn}")
+            raise AssertionError(f"{what} train step {state.step}: loss "
+                                 f"{loss}, grad_norm {gn}")
         losses.append(loss)
+        return m
+
+    def counted(fn, label):
+        reset_counts()
+        m = one(fn)
+        seen = read_counts()
+        if seen != expect:
+            raise AssertionError(f"{what}, {label}: (K2, K1) launches "
+                                 f"{seen}, expected {expect}")
+        log(f"[train] {what}, {label}: loss {float(m['loss']):.4f}, "
+            f"grad_norm {float(m['grad_norm']):.4f}, launches as expected")
 
     for _ in range(2):
         one()
-    splash.launches.update(forward=0, backward=0)
+    reset_counts()
     for _ in range(timed):
         one()
-    counted = dict(splash.launches)
-    if device == "cuda":
-        profile_step(lambda: one())
+    k2, k1 = read_counts()
+    per = {k: n / timed for k, n in k2.items()}
+    prof = profile_step(one, f"one {what} train step") if on_card else {}
     while state.step < 10:
         one()
     with torch.no_grad():
-        final = float(steps.make_lm_loss_fn(model)(b)[0])
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        final = float(final_loss())
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
     step_s = statistics.median(secs[2: 2 + timed])
-    tokens = int(batch["seq_len"].sum())
-    per_step = {k: n / timed for k, n in counted.items()}
-    log(f"[train] {card} | B={LM_BATCH} L={batch['src_type'].shape[1]} "
-        f"plan tokens {tokens} | median step_s {step_s:.4f} (steps "
-        f"{[round(x, 4) for x in secs[2: 2 + timed]]}) | tokens/s "
-        f"{tokens / step_s:.1f} | peak memory {peak / 2**30:.2f} GiB | K2 "
-        f"launches per step {per_step} | loss {losses[0]:.4f} -> "
-        f"{final:.4f} after {state.step} steps")
-    n_layers = lm_cfg.qwen.n_layers
-    if device == "cuda" and per_step != {"forward": n_layers,
-                                         "backward": n_layers}:
-        raise AssertionError(f"K2 launches per step {per_step}, expected "
-                             f"{n_layers} and {n_layers}")
+    amount, unit = work
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] {card} | {what} | {n_params} parameters in "
+        f"{len(list(model.parameters()))} leaves | {unit} {amount} | median "
+        f"step_s {step_s:.4f} (steps {[round(x, 4) for x in secs[2: 2 + timed]]}"
+        f") | {unit}/s {amount / step_s:.1f} | peak memory "
+        f"{peak / 2**30:.2f} GiB | K2 launches per step {per}, K1 "
+        f"{k1 / timed} | loss {losses[0]:.4f} -> {final:.4f} after "
+        f"{state.step} steps")
+    if (k2, k1) != ({k: n * timed for k, n in expect[0].items()},
+                    expect[1] * timed):
+        raise AssertionError(f"{what}: {timed} steps launched K2 {k2} and "
+                             f"K1 {k1}, expected {expect} per step")
     if not final < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses[0]} -> {final}")
+        raise AssertionError(f"{what} loss did not fall: {losses[0]} -> "
+                             f"{final}")
+    for label, kw in more:
+        counted(make_step(**kw), label)
+    bf16_step = make_step(bf16=True)
+    for i in range(2):
+        counted(bf16_step, f"bf16 step {i + 1}")
+    return {"launches": sum(k2.values()), "per_step": per,
+            "step_s": step_s, "rate": amount / step_s, "profile": prof}
 
-    bf16_step = steps.make_lm_train_step(model, bf16=True, device=device)
-    for _ in range(2):
-        state, m = bf16_step(state, b)
-        if not (np.isfinite(float(m["loss"]))
-                and np.isfinite(float(m["grad_norm"]))):
-            raise AssertionError(f"bf16 step: {m}")
-    log(f"[train] bf16 steps finite: loss {float(m['loss']):.4f}, "
-        f"grad_norm {float(m['grad_norm']):.4f}")
-    del model, state
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    return {"launches": sum(counted.values()),
-            "launches_per_step": per_step, "step_s": step_s,
-            "tokens_per_s": tokens / step_s}
+
+def lm_train_phase(lm_cfg, batch, card: str, device="cuda"):
+    """Phase 7: the LM on the fixed batch; each step launches K2 once
+    forward and once backward per layer."""
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.train import steps
+
+    model, state = _train_state(llm_mod.SpeechLM(lm_cfg), device)
+    b = _on(batch, device)
+    n = lm_cfg.qwen.n_layers
+    rec = train_main_path(
+        model, state, functools.partial(steps.make_lm_train_step, model,
+                                        device=device),
+        (b,), lambda: steps.make_lm_loss_fn(model)(b)[0],
+        ({"forward": n, "backward": n}, 0),
+        (int(batch["seq_len"].sum()), "plan tokens"),
+        f"LM B={LM_BATCH} L={batch['src_type'].shape[1]}", card, device)
+    return {"launches": rec["launches"], "launches_per_step": rec["per_step"],
+            "step_s": rec["step_s"], "tokens_per_s": rec["rate"]}
 
 
 def write_corpus(root: Path, n: int = 16, seed: int = 0) -> Path:
@@ -1664,10 +1776,15 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0) -> Path:
     return lst
 
 
-def cli_phase(config: str = "configs/default.yaml", device: str = "cuda"):
-    """Phase 8: cli/train.main at full width for one epoch on a synthetic
-    corpus (a batch holds about 8 utterances), then a second call that
-    resumes at the saved step."""
+def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
+              model: str = "llm"):
+    """Phases 8 and 21: cli/train.main at full width for one epoch on a
+    synthetic corpus (a batch holds about 8 utterances), then a second
+    call that resumes at the saved step. The flow run also takes a cv
+    pass over the corpus, and on the card its train steps must launch
+    only K2 in the UNet (per step one forward and one backward per
+    transformer block) and its cv pass only K1 (one per block and
+    batch)."""
     import shutil
     import tempfile
 
@@ -1681,44 +1798,55 @@ def cli_phase(config: str = "configs/default.yaml", device: str = "cuda"):
         lst = write_corpus(root)
         model_dir = root / "exp"
         # longest latent (16 s at 50 Hz = 800 frames) x 8 utterances
-        argv = ["--model", "llm", "--config", str(repo / config),
+        argv = ["--model", model, "--config", str(repo / config),
                 "--train_data", str(lst), "--model_dir", str(model_dir),
                 "--device", device, "--max_epoch", "1",
                 "--override", "train.max_frames_in_batch=6400",
                 "--override", "train.save_per_step=2",
                 "--override", "train.warmup_steps=0",
                 "--override", "train.log_interval=1"]
+        cv = ["--cv_data", str(lst)] if model == "flow" else []
+        reset_counts()
         t0 = time.perf_counter()
-        first = train_cli.main(argv)
+        first = train_cli.main(argv + cv)
         t1 = time.perf_counter()
-        rows = [json.loads(line) for line in
-                (model_dir / "llm_metrics.jsonl").read_text().splitlines()]
+        k2, k1 = read_counts()
+        rows = [json.loads(line) for line in (
+            model_dir / f"{model}_metrics.jsonl").read_text().splitlines()]
         losses = [r["loss"] for r in rows if "loss" in r]
+        cv_losses = [r["cv/loss"] for r in rows if "cv/loss" in r]
         ckpts = sorted(p.name for p in (model_dir / "ckpt").iterdir())
-        if not losses or not np.isfinite(losses).all() or not ckpts:
-            raise AssertionError(f"train CLI: losses {losses}, "
-                                 f"checkpoints {ckpts}")
+        if not losses or not np.isfinite(losses + cv_losses).all() \
+                or not ckpts or len(cv_losses) != bool(cv):
+            raise AssertionError(f"train CLI: losses {losses}, cv "
+                                 f"{cv_losses}, checkpoints {ckpts}")
         second = train_cli.main(argv)
         t2 = time.perf_counter()
         if second.step != first.step or str(first.step) not in ckpts:
             raise AssertionError(f"train CLI resume: step {second.step}, "
                                  f"first run {first.step}, ckpts {ckpts}")
-        log(f"[cli] one epoch of {len(losses)} steps in {t1 - t0:.1f} s, "
-            f"losses {[round(x, 4) for x in losses]}, checkpoints {ckpts}; "
-            f"second call resumed at step {second.step} in {t2 - t1:.1f} s")
+        log(f"[cli] --model {model}: one epoch of {len(losses)} steps in "
+            f"{t1 - t0:.1f} s, losses {[round(x, 4) for x in losses]}, cv "
+            f"{[round(x, 4) for x in cv_losses]}, checkpoints {ckpts}, K2 "
+            f"launches {k2}, K1 launches {k1}; second call resumed at step "
+            f"{second.step} in {t2 - t1:.1f} s")
+        if model == "flow" and device == "cuda":
+            n = attn_calls_per_step(first.module.cfg.unet)
+            if k2 != {"forward": n * first.step, "backward": n * first.step} \
+                    or k1 == 0 or k1 % n:
+                raise AssertionError(f"train CLI --model flow: K2 {k2}, K1 "
+                                     f"{k1}, {first.step} steps, {n} "
+                                     f"attention calls per UNet pass")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def first_grads(model, batch) -> dict:
-    """{parameter name: gradient on the CPU} of the LM loss at the
-    current weights (zeros where a parameter gets none)."""
+def first_grads(model, loss) -> dict:
+    """{parameter name: gradient on the CPU} of `loss` at the current
+    weights (zeros where a parameter gets none)."""
     import torch
 
-    from minimax_speech_torch.train import steps
-
     names, params = zip(*model.named_parameters())
-    loss, _ = steps.make_lm_loss_fn(model)(batch)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
             for n, p, g in zip(names, params, grads)}
@@ -1728,17 +1856,16 @@ def train_cross_check(full_lm_cfg, batch, device="cuda", steps_n=3):
     """Phase 9: 2 LM layers, the same weights and batch on `device` and on
     the CPU: every leaf's gradient at the start, the metrics of each
     step, and the parameters after `steps_n` steps."""
-    import torch
-
+    from minimax_speech_torch.models import llm as llm_mod
     from minimax_speech_torch.train import steps
 
     cfg = dataclasses.replace(full_lm_cfg, qwen=dataclasses.replace(
         full_lm_cfg.qwen, n_layers=2))
     runs = {}
     for dev in ("cpu", device):
-        model, state = _lm_state(cfg, dev, seed=5)
+        model, state = _train_state(llm_mod.SpeechLM(cfg), dev, seed=5)
         b = _on(batch, dev)
-        grads = first_grads(model, b)
+        grads = first_grads(model, steps.make_lm_loss_fn(model)(b)[0])
         step = steps.make_lm_train_step(model, device=dev)
         metrics = []
         for _ in range(steps_n):
@@ -1747,20 +1874,51 @@ def train_cross_check(full_lm_cfg, batch, device="cuda", steps_n=3):
         runs[dev] = (metrics, grads, {n: p.detach().cpu() for n, p in
                                       model.named_parameters()})
         del model, state, b
+    compare_training(runs, device, steps_n, "cross-train",
+                     "2 layers")
+
+
+def grad_errors(grads, ref, symmetric=()) -> dict:
+    """{leaf: max |grads - ref| over the leaf's largest |ref|}, in ref's
+    dtype; the `symmetric` leaves, whose ref is 0 but for rounding, over
+    the model's largest |ref|."""
+    top = max(float(g.abs().max()) for g in ref.values())
+    return {n: float((grads[n].to(r.dtype) - r).abs().max()) / max(
+        top if n in symmetric else float(r.abs().max()), 1e-30)
+        for n, r in ref.items()}
+
+
+def compare_training(runs, device, steps_n, tag, what, symmetric=(),
+                     k2_leaves=(), truth=None):
+    """Phases 9 and 22: the runs on `device` and on the CPU, {dev:
+    (metrics per step, first-step gradients, parameters after steps_n
+    steps)}, held to the TRAIN_* limits. `symmetric`: parameter names
+    whose gradient is 0 by symmetry, so both sides hold rounding only:
+    their first-step gradient is held to TRAIN_GRAD_RTOL of the model's
+    largest gradient element instead of their own, and their parameters
+    are left out as unpinned. `k2_leaves`: parameter names whose
+    gradient reaches them only through K2's dq and dk: their first-step
+    gradient on `device` is held against `truth`, the first-step
+    gradients of a float64 run on the CPU, at K2_GRAD_RTOL."""
     (m_dev, g_dev, p_dev), (m_cpu, g_cpu, p_cpu) = runs[device], runs["cpu"]
     worst = max(abs(a[k] - c[k]) / max(abs(c[k]), 1e-12)
                 for a, c in zip(m_dev, m_cpu) for k in c)
     max_tol = TRAIN_PARAM_TOL * TRAIN_LR * steps_n
-    bad, grad_err, leaf_max, leaf_share = [], {}, {}, {}
+    grad_err = grad_errors(g_dev, g_cpu, symmetric)
+    if truth is not None:  # (card, CPU) against float64
+        to_truth = [grad_errors(g, truth, symmetric) for g in (g_dev, g_cpu)]
+    bad, leaf_max, leaf_share = [], {}, {}
     n_out = n_moved_out = 0
     out_max = 0.0
     for n in p_cpu:
-        scale = float(g_cpu[n].abs().max())
-        grad_err[n] = float((g_dev[n] - g_cpu[n]).abs().max()) / max(
-            scale, 1e-30)
+        held = to_truth[0][n] if n in k2_leaves else grad_err[n]
+        grad_tol = K2_GRAD_RTOL if n in k2_leaves else TRAIN_GRAD_RTOL
         # elements whose gradient the check above does not pin (within its
         # limit of zero): Adam's update there rests on rounding
-        pinned = g_cpu[n].abs() >= TRAIN_GRAD_RTOL * scale
+        pinned = g_cpu[n].abs() >= TRAIN_GRAD_RTOL * float(
+            g_cpu[n].abs().max())
+        if n in symmetric:
+            pinned[...] = False
         d = (p_dev[n] - p_cpu[n]).abs()
         if not pinned.all():
             n_out += int((~pinned).sum())
@@ -1770,30 +1928,203 @@ def train_cross_check(full_lm_cfg, batch, device="cuda", steps_n=3):
         leaf_max[n] = float(d.max()) if d.numel() else 0.0
         leaf_share[n] = float((d > TRAIN_PARAM_ATOL).float().mean()) \
             if d.numel() else 0.0
-        if grad_err[n] > TRAIN_GRAD_RTOL or leaf_max[n] > max_tol \
+        if held > grad_tol or leaf_max[n] > max_tol \
                 or leaf_share[n] > TRAIN_PARAM_SHARE:
-            bad.append(f"{n}: grad err {grad_err[n]:.2e} of its largest, "
+            bad.append(f"{n}: grad err {held:.2e} of its largest"
+                       f"{' (against float64)' if n in k2_leaves else ''}, "
                        f"param max {leaf_max[n]:.2e} share "
                        f"{leaf_share[n]:.2e}")
-    worst_grad = max(grad_err, key=grad_err.get)
+    others = [n for n in grad_err if n not in k2_leaves]
+    worst_grad = max(others, key=grad_err.get)
     worst_max = max(leaf_max, key=leaf_max.get)
     worst_share = max(leaf_share, key=leaf_share.get)
-    log(f"[cross-train] 2 layers, {steps_n} steps, TF32 off: loss "
+    log(f"[{tag}] {what}, {steps_n} steps, TF32 off: loss "
         f"{[round(m['loss'], 5) for m in m_dev]} vs "
         f"{[round(m['loss'], 5) for m in m_cpu]}; worst metric rel diff "
         f"{worst:.2e} (tol {TRAIN_METRIC_RTOL:g}); first-step gradient per "
         f"leaf: worst max |diff| {grad_err[worst_grad]:.2e} of the leaf's "
-        f"largest ({worst_grad}; tol {TRAIN_GRAD_RTOL:g}); params per "
+        f"largest ({worst_grad}; tol {TRAIN_GRAD_RTOL:g}; "
+        f"{len(symmetric)} leaves zero by symmetry held to the model's "
+        f"largest); params per "
         f"leaf: worst max |diff| {leaf_max[worst_max]:.2e} ({worst_max}; "
         f"tol {max_tol:g}), worst share above {TRAIN_PARAM_ATOL:g} "
         f"{leaf_share[worst_share]:.2e} ({worst_share}; tol "
         f"{TRAIN_PARAM_SHARE:g}); left out {n_out} elements with gradient "
         f"below {TRAIN_GRAD_RTOL:g} of their leaf's largest ({n_moved_out} "
         f"of them nonzero), max |diff| there {out_max:.2e}")
+    if truth is not None:
+        for side, errs in (("card", to_truth[0]), ("CPU float32",
+                                                    to_truth[1])):
+            w = sorted(errs, key=lambda n: -errs[n])[:3]
+            log(f"[{tag}] first-step gradient, {side} against float64, of "
+                f"the leaf's largest: worst "
+                f"{', '.join(f'{errs[n]:.2e} ({n})' for n in w)}")
+        if k2_leaves:
+            w = max(k2_leaves, key=to_truth[0].get)
+            log(f"[{tag}] the {len(k2_leaves)} leaves reached only through "
+                f"K2's dq/dk, card against float64: worst "
+                f"{to_truth[0][w]:.2e} ({w}; tol {K2_GRAD_RTOL:g}), card "
+                f"against the CPU {max(grad_err[n] for n in k2_leaves):.2e}")
     for line in bad:
-        log(f"[cross-train]   FAIL {line}")
+        log(f"[{tag}]   FAIL {line}")
     if worst > TRAIN_METRIC_RTOL or bad:
         raise AssertionError("training differs between the card and the CPU")
+
+
+def flow_batch(flow_cfg, batch: int = FLOW_BATCH):
+    """The fixed flow training batch: FLOW_BATCH utterances of
+    FLOW_TOKENS tokens (the longest 256, so padding_flow's bucket gives
+    T = 512 latent frames) with random latents and ragged reference mels,
+    from numpy seed 0, through the port's padding_flow."""
+    from minimax_speech_torch.data import pipeline as dp
+
+    rng = np.random.default_rng(0)
+    n_tok = rng.integers(FLOW_TOKENS[0], FLOW_TOKENS[1] + 1, batch)
+    n_tok[0] = FLOW_TOKENS[1]
+    mel_len = rng.integers(100, FLOW_REF_FRAMES + 1, batch)
+    d = flow_cfg.output_size
+    samples = [{"speech_token": rng.integers(0, flow_cfg.vocab_size, n),
+                "speech_latent": rng.standard_normal((2 * n, d)).astype(
+                    np.float32),
+                "reference_mels": [rng.standard_normal(
+                    (m, flow_cfg.speaker.mel_dim)).astype(np.float32)]}
+               for n, m in zip(n_tok, mel_len)]
+    return next(dp.padding_flow([samples]))
+
+
+def _flow_draws(flow_cfg, batch, device, seed=0):
+    """Draws for `batch` from a generator on the CPU, moved to `device`,
+    so that the card and the CPU train on the same numbers."""
+    import torch
+
+    from minimax_speech_torch.models import flow as flow_mod
+
+    d = flow_mod.make_flow_draws(flow_cfg, *batch["feat"].shape[:2],
+                                 torch.Generator().manual_seed(seed))
+    return flow_mod.FlowDraws(
+        use_cond=d.use_cond.to(device), frac=d.frac.to(device),
+        cfm=dataclasses.replace(d.cfm, **{
+            f.name: getattr(d.cfm, f.name).to(device)
+            for f in dataclasses.fields(d.cfm)}))
+
+
+def reset_counts():
+    """Set K1's and K2's launch counters to 0."""
+    from minimax_speech_torch.kernels import flash_attention as fa
+    from minimax_speech_torch.kernels import splash
+    fa.launches = 0
+    splash.launches.update(forward=0, backward=0)
+
+
+def read_counts():
+    """(K2's {forward, backward} launches, K1's launches)."""
+    from minimax_speech_torch.kernels import flash_attention as fa
+    from minimax_speech_torch.kernels import splash
+    return dict(splash.launches), fa.launches
+
+
+def flow_k2_phase(shape, kv):
+    """Phase 19: K2 at the flow-training shape (B, 8, T, 64) with the
+    phase-20 batch's key lengths, in the UNet's full and chunk-50 modes,
+    fp32 and bf16, against its plain version at K2_TOL; then timed in
+    each mode. Returns the records by mode."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    modes = {m: K2_MODES[m] for m in ("full", "chunk50")}
+    k2_agreement([(shape, kv)], modes, gen)
+    return {f"flow_train_{m}": k2_timing(gen, shape, kv, m) for m in modes}
+
+
+def flow_train_phase(flow_cfg, batch, card: str, device="cuda"):
+    """Phase 20: the flow on the fixed batch with fixed draws; each step
+    (also a streaming=True one, in K2's chunk mode) launches K2 once
+    forward and once backward per UNet transformer block, and K1 never."""
+    from minimax_speech_torch.models import flow as flow_mod
+    from minimax_speech_torch.train import steps
+
+    model, state = _train_state(flow_mod.FlowModel(flow_cfg), device)
+    b = _on(batch, device)
+    draws = _flow_draws(flow_cfg, batch, device)
+    n = attn_calls_per_step(flow_cfg.unet)
+    rec = train_main_path(
+        model, state, functools.partial(steps.make_flow_train_step, model,
+                                        device=device),
+        (b, draws), lambda: steps.make_flow_loss_fn(model)(b, draws),
+        ({"forward": n, "backward": n}, 0),
+        (int(batch["feat_len"].sum()), "target frames"),
+        f"flow B={batch['feat'].shape[0]} T={batch['feat'].shape[1]}", card,
+        device, more=[(f"a streaming=True step (K2 chunk "
+                       f"{flow_cfg.unet.static_chunk_size})",
+                       {"streaming": True})])
+    return {"flow_train": rec["launches"],
+            "flow_train_per_step": rec["per_step"],
+            "flow_step_s": rec["step_s"], "flow_frames_per_s": rec["rate"],
+            "flow_profile": rec["profile"]}
+
+
+def reduced_flow(flow_cfg):
+    """1 mid UNet stage and 1 + 1 encoder blocks, widths as given."""
+    return dataclasses.replace(
+        flow_cfg,
+        encoder=dataclasses.replace(flow_cfg.encoder, num_blocks=1,
+                                    num_up_blocks=1),
+        unet=dataclasses.replace(flow_cfg.unet, num_mid_blocks=1))
+
+
+def flow_first_grads(cfg, batch, device, seed=5, double=False):
+    """First-step gradients of the flow `cfg` initialised from `seed` on
+    `batch` with the draws of `seed`, on `device`; in float64 throughout
+    (the UNet's attention too) with `double`. Returns them and (model,
+    state, batch, draws) for more steps."""
+    from minimax_speech_torch.models import flow as flow_mod
+    from minimax_speech_torch.train import steps
+
+    model, state = _train_state(flow_mod.FlowModel(cfg), device, seed)
+    b = _on(batch, device)
+    if double:
+        model.double()
+        b = {k: v.double() if v.is_floating_point() else v
+             for k, v in b.items()}
+    draws = _flow_draws(cfg, batch, device, seed)
+    grads = first_grads(model, steps.make_flow_loss_fn(model)(b, draws))
+    return grads, (model, state, b, draws)
+
+
+def flow_leaves(names):
+    """(the conformer's key biases, whose gradient is 0 by symmetry: a key
+    bias adds one constant to each query row's scores; the UNet's to_q
+    and to_k weights, whose gradient comes only through K2's dq and dk)."""
+    return ([n for n in names if n.endswith("linear_k.bias")],
+            [n for n in names if n.startswith("estimator.")
+             and n.endswith(("to_q.weight", "to_k.weight"))])
+
+
+def flow_cross_check(full_flow_cfg, batch, device="cuda", steps_n=3):
+    """Phase 22: the flow at reduced depth, the same weights, batch and
+    draws on `device` and on the CPU, and a float64 run on the CPU for
+    the first-step gradients: phase 9's checks, except that the UNet's
+    to_q and to_k weights are held against the float64 run at
+    K2_GRAD_RTOL (compare_training)."""
+    from minimax_speech_torch.train import steps
+
+    cfg = reduced_flow(full_flow_cfg)
+    truth, _ = flow_first_grads(cfg, batch, "cpu", double=True)
+    runs = {}
+    for dev in ("cpu", device):
+        grads, (model, state, b, draws) = flow_first_grads(cfg, batch, dev)
+        step = steps.make_flow_train_step(model, device=dev)
+        metrics = []
+        for _ in range(steps_n):
+            state, m = step(state, b, draws)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (metrics, grads, {n: p.detach().cpu() for n, p in
+                                      model.named_parameters()})
+        del model, state, b
+    symmetric, k2_leaves = flow_leaves(list(truth))
+    compare_training(runs, device, steps_n, "cross-flow",
+                     "flow, 1 mid UNet stage, 1+1 encoder blocks",
+                     symmetric=symmetric, k2_leaves=k2_leaves, truth=truth)
 
 
 def main() -> int:
@@ -1834,7 +2165,7 @@ def main() -> int:
     pipe = TTSPipeline.from_random(cfg, seed=0, device="cuda")
     pipe.lm.to(torch.bfloat16)
     per_utt, seen = main_path(pipe, inputs, TIMED_RUNS, card, "cuda")
-    expect = attn_calls_per_step(cfg) * cfg.flow.n_timesteps
+    expect = attn_calls_per_step(cfg.flow.unet) * cfg.flow.n_timesteps
     if any(n != expect for n in per_utt) or seen["bt"] != (b, t) \
             or seen["kv"] != [kv, kv]:
         raise AssertionError(f"K1 on the main path: launches {per_utt} "
@@ -1851,7 +2182,8 @@ def main() -> int:
     q = train_lm.qwen
     k2 = k2_checks((LM_BATCH, q.n_heads, LM_PAD, q.head_dim),
                    [int(n) for n in batch["seq_len"]])
-    k2.update(train_main_path(train_lm, batch, card))
+    k2.update(lm_train_phase(train_lm, batch, card))
+    torch.cuda.empty_cache()
     cli_phase()
     train_cross_check(train_lm, batch)
 
@@ -1887,6 +2219,21 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     serve_cross_check(reduced_pipes(cfg, inputs))
+
+    # flow training: phase 19 at the shapes of phase 20's batch, then 20-22
+    flow_cfg = TTSConfig().flow
+    fbatch = flow_batch(flow_cfg)
+    u = flow_cfg.unet
+    k2["at_flow_train_shapes"] = flow_k2_phase(
+        (FLOW_BATCH, u.num_heads, fbatch["feat"].shape[1],
+         u.attention_head_dim), [int(n) for n in fbatch["feat_len"]])
+    flow_rec = flow_train_phase(flow_cfg, fbatch, card)
+    torch.cuda.empty_cache()
+    k2["launches_by_path"] = {"lm_train": k2["launches"],
+                              "flow_train": flow_rec.pop("flow_train")}
+    k2.update(flow_rec)
+    cli_phase(model="flow")
+    flow_cross_check(flow_cfg, fbatch)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))

@@ -1,23 +1,28 @@
-"""Stage-1 LM training CLI: `python -m minimax_speech_torch.cli.train --model llm`.
+"""Training CLI: `python -m minimax_speech_torch.cli.train --model {llm,flow}`.
 
-Port of the single-device `--model llm` path of
-minimax_speech_tpu/cli/train.py: config + overrides, the data pipeline,
-the model from a seed or an `--init_ckpt` .npz (the JAX package's
-format), AdamW + clip, the metrics log, checkpoints with resume, the
-epoch loop, `--cv_data`, and `--export_npz` (a .npz the JAX package
-loads). Runs on `--device` (default cuda; raises without a GPU).
+Port of the single-device path of minimax_speech_tpu/cli/train.py for
+the Stage-1 LM (`--model llm`) and the Stage-2 flow (`--model flow`,
+with `--latent_stats`): config + overrides, the data pipeline (the flow
+chain ends in padding_flow), the model from a seed or an `--init_ckpt`
+.npz (the JAX package's format), AdamW + clip, the metrics log,
+checkpoints with resume, the epoch loop, `--cv_data`, and `--export_npz`
+(a .npz the JAX package loads). The flow step takes its random draws
+from a generator seeded with (1986, global step) and cv batch i from
+seed i (train/executor.py). Under grad the flow UNet attends through K2,
+without grad (the cv loss) through K1 (models/decoder_unet.py). Runs on
+`--device` (default cuda; raises without a GPU).
 
 Epoch resume departs from the JAX CLI on purpose, fixing two flaws:
-  * the run key hashes the train list's content and the --dpo, --bf16
-    and --init_ckpt flags besides the train config and max_epoch, so a
-    run on other data or with other flags starts at epoch 0;
+  * the run key hashes the train list's content, --model, the latent
+    stats and the --dpo, --bf16 and --init_ckpt flags besides the train
+    config and max_epoch, so a run on other data or with other flags
+    starts at epoch 0;
   * the rollback is counted in epochs: epoch_state.json keeps the step
     at which each completed epoch ended, and a resume from a checkpoint
     at step S restarts at the first epoch that ended after S.
 
 Not ported yet (each raises NotImplementedError; ROADMAP.md, queue 1):
---model flow, --dpo, --distributed, --tp/--dp > 1, and a tokenizer
-path.
+--dpo, --distributed, --tp/--dp > 1, and a tokenizer path.
 """
 from __future__ import annotations
 
@@ -30,9 +35,12 @@ from pathlib import Path
 import numpy as np
 
 INIT_SEED = 1986
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, training slice)"
-BATCH_KEYS = ("src_type", "tok_id", "target", "seq_len", "reference_mel",
-              "reference_mel_len")
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 3: the rest of "
+               "LM training)")
+BATCH_KEYS = {"llm": ("src_type", "tok_id", "target", "seq_len",
+                      "reference_mel", "reference_mel_len"),
+              "flow": ("token", "token_len", "feat", "feat_len",
+                       "reference_mel", "reference_mel_len")}
 
 
 def parse_args(argv=None):
@@ -62,14 +70,15 @@ def parse_args(argv=None):
     p.add_argument("--export_npz", type=str, default=None,
                    help="also write the final params as a .npz in the "
                         "JAX package's format")
+    p.add_argument("--latent_stats", type=str, default=None,
+                   help="latent_stats.json ({mean, std}; flow only): the "
+                        "flow solves in standardized latent space")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
 
 
 def check_ported(args):
-    if args.model != "llm":
-        raise NotImplementedError(f"--model {args.model} {_NOT_PORTED}")
     if args.dpo:
         raise NotImplementedError(f"--dpo {_NOT_PORTED}")
     if args.distributed:
@@ -78,10 +87,17 @@ def check_ported(args):
         raise NotImplementedError(f"--tp/--dp > 1 {_NOT_PORTED}")
 
 
-def build_stages(cfg_train, tokenizer):
-    """The LM chain: open, tokenize, filter, resample, reference mel,
-    shuffle, sort, frame-budget batches, plan padding."""
+def build_stages(cfg_train, tokenizer, model_kind: str = "llm"):
+    """The chain: open, tokenize, filter, resample, reference mel,
+    shuffle, sort, frame-budget batches, then the LM's plan padding or
+    the flow's padding."""
     from minimax_speech_torch.data import pipeline as dp
+    if model_kind == "flow":
+        pad = dp.padding_flow
+    else:
+        def pad(it):
+            return dp.padding_llm(
+                it, bistream_prob=cfg_train.get("bistream_prob", 0.5))
     return [
         dp.individual_file_opener,
         lambda it: dp.tokenize(it, tokenizer),
@@ -92,20 +108,20 @@ def build_stages(cfg_train, tokenizer):
         lambda it: dp.sort_by_len(it, 500),
         lambda it: dp.dynamic_batch(
             it, cfg_train.get("max_frames_in_batch", 25000)),
-        lambda it: dp.padding_llm(
-            it, bistream_prob=cfg_train.get("bistream_prob", 0.5)),
+        pad,
     ]
 
 
-def run_key(tcfg: dict, max_epoch: int, train_list: str, args) -> str:
+def run_key(tcfg: dict, max_epoch: int, train_list: str, args,
+            latent_stats=None) -> str:
     """Identity of a run for epoch resume: the train config, the epoch
-    budget, the train list's content and the flags that change what is
-    trained."""
+    budget, the train list's content, the model, the latent stats and the
+    flags that change what is trained."""
     data = hashlib.sha256(Path(train_list).read_bytes()).hexdigest()
     return hashlib.sha256(json.dumps(
-        [tcfg, max_epoch, data, bool(args.dpo), bool(args.bf16),
-         args.init_ckpt], sort_keys=True, default=str).encode()
-    ).hexdigest()[:16]
+        [tcfg, max_epoch, data, args.model, latent_stats, bool(args.dpo),
+         bool(args.bf16), args.init_ckpt], sort_keys=True,
+        default=str).encode()).hexdigest()[:16]
 
 
 def resume_epoch(ep_path: Path, key: str, restored_step: int) -> int:
@@ -139,6 +155,7 @@ def main(argv=None):
     from minimax_speech_torch import config as cfg_lib
     from minimax_speech_torch.data import pipeline as dp
     from minimax_speech_torch.infer.frontend import get_tokenizer
+    from minimax_speech_torch.models import flow as flow_mod
     from minimax_speech_torch.models import llm as llm_mod
     from minimax_speech_torch.train import schedule, steps
     from minimax_speech_torch.train.checkpoint import CheckpointManager
@@ -150,11 +167,19 @@ def main(argv=None):
     device = resolve_device(args.device)
     data = cfg_lib.apply_overrides(cfg_lib.load_yaml(args.config),
                                    args.override)
+    stats = None
+    if args.latent_stats:
+        stats = json.loads(Path(args.latent_stats).read_text())
+        data = cfg_lib.apply_overrides(data, [
+            "model.flow.latent_mean=" + json.dumps(stats["mean"]),
+            "model.flow.latent_std=" + json.dumps(stats["std"])])
     tts_cfg = cfg_lib.build_tts_config(data.get("model", {}))
     tcfg = data.get("train", {})
     tokenizer = get_tokenizer(args.tokenizer_path)
 
-    model = llm_mod.SpeechLM(tts_cfg.lm)
+    flow = args.model == "flow"
+    model = flow_mod.FlowModel(tts_cfg.flow) if flow \
+        else llm_mod.SpeechLM(tts_cfg.lm)
     if args.init_ckpt:
         params_io.load_flax_params(model, params_io.load_params(
             args.init_ckpt))
@@ -162,7 +187,9 @@ def main(argv=None):
         params_io.init_params(model,
                               torch.Generator().manual_seed(INIT_SEED))
     model.to(device)
-    step_fn = steps.make_lm_train_step(model, bf16=args.bf16, device=device)
+    make_step = steps.make_flow_train_step if flow \
+        else steps.make_lm_train_step
+    step_fn = make_step(model, bf16=args.bf16, device=device)
     tx = schedule.make_optimizer(
         lr=tcfg.get("lr", 5e-5), warmup_steps=tcfg.get("warmup_steps", 500),
         scheduler=tcfg.get("scheduler", "constantlr"),
@@ -179,11 +206,16 @@ def main(argv=None):
 
     def put(batch):
         return {k: torch.as_tensor(np.asarray(v)).to(device)
-                for k, v in batch.items() if k in BATCH_KEYS}
+                for k, v in batch.items() if k in BATCH_KEYS[args.model]}
+
+    def draws(batch, generator):
+        return flow_mod.make_flow_draws(
+            tts_cfg.flow, *batch["feat"].shape[:2], generator)
 
     ex = Executor(step_fn, state, logger, ckpt,
                   save_per_step=tcfg.get("save_per_step", 2000),
-                  put_batch=put, device=device)
+                  put_batch=put, device=device,
+                  make_draws=draws if flow else None)
 
     def data_list(path, **kw):
         return dp.DataList([{"src": line.strip()} for line in
@@ -191,18 +223,25 @@ def main(argv=None):
                             if line.strip()], **kw)
 
     source = data_list(args.train_data)
-    stages = build_stages(tcfg, tokenizer)
+    stages = build_stages(tcfg, tokenizer, args.model)
     cv_source = data_list(args.cv_data, shuffle=False) if args.cv_data \
         else None
-    lm_loss = steps.make_lm_loss_fn(model, bf16=args.bf16)
+    if flow:
+        flow_loss = steps.make_flow_loss_fn(model, bf16=args.bf16)
 
-    def cv_loss(state, batch):
-        with torch.no_grad():
-            loss, acc = lm_loss(batch)
-        return {"loss": loss, "acc": acc}
+        def cv_loss(state, batch, draws):
+            with torch.no_grad():
+                return {"loss": flow_loss(batch, draws)}
+    else:
+        lm_loss = steps.make_lm_loss_fn(model, bf16=args.bf16)
+
+        def cv_loss(state, batch):
+            with torch.no_grad():
+                loss, acc = lm_loss(batch)
+            return {"loss": loss, "acc": acc}
 
     max_epoch = args.max_epoch or tcfg.get("max_epoch", 2000)
-    key = run_key(tcfg, max_epoch, args.train_data, args)
+    key = run_key(tcfg, max_epoch, args.train_data, args, stats)
     ep_path = Path(args.model_dir) / "epoch_state.json"
     start_epoch = resume_epoch(ep_path, key, start_step)
     end_steps = []

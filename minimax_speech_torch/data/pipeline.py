@@ -1,11 +1,13 @@
-"""Host-side data pipeline for LM training: chained generator stages.
+"""Host-side data pipeline for LM and flow training: chained generator
+stages.
 
-Port of the stages of minimax_speech_tpu/data/pipeline.py that the LM
-chain of cli/train.py runs:
+Port of the stages of minimax_speech_tpu/data/pipeline.py that the
+chains of cli/train.py run:
 
   DataList -> individual_file_opener (wav + sidecars) -> tokenize ->
   filter_lengths -> resample -> extract_reference_mel -> shuffle ->
-  sort_by_len -> dynamic_batch -> padding_llm -> prefetch
+  sort_by_len -> dynamic_batch -> padding_llm (--model llm) or
+  padding_flow (--model flow) -> prefetch
 
 Stages are generator transformers, fn(iterable, **cfg) -> iterable of
 sample dicts (batches: lists of dicts, then dicts of numpy arrays). They
@@ -254,6 +256,27 @@ def _pad_reference_mels(batch, bucket_multiple: int) -> dict:
     for i, s in enumerate(batch):
         ref[i, : rl[i]] = s["reference_mels"][0]
     return {"reference_mel": ref, "reference_mel_len": rl}
+
+
+def padding_flow(batches, token_latent_ratio: int = TOKEN_LATENT_RATIO,
+                 bucket_multiple: int = 32) -> Iterator[dict]:
+    """Stage-2 flow batch: tokens padded to a multiple of
+    `bucket_multiple`, target latents to token_latent_ratio x that, and
+    the reference mels padded to a multiple of `bucket_multiple`."""
+    for batch in batches:
+        b = len(batch)
+        tl = np.array([len(s["speech_token"]) for s in batch], np.int32)
+        tmax = _bucket(int(tl.max()), bucket_multiple)
+        token = np.zeros((b, tmax), np.int32)
+        feat = np.zeros((b, tmax * token_latent_ratio, 80), np.float32)
+        for i, s in enumerate(batch):
+            token[i, : tl[i]] = s["speech_token"]
+            feat[i, : len(s["speech_latent"])] = s["speech_latent"]
+        out = {"token": token, "token_len": tl, "feat": feat,
+               "feat_len": tl * token_latent_ratio}
+        if "reference_mels" in batch[0]:
+            out.update(_pad_reference_mels(batch, bucket_multiple))
+        yield out
 
 
 def padding_llm(batches, mix_ratio=(5, 15), use_spk: bool = True,

@@ -179,15 +179,17 @@ def reference_splash_attention(q, k, v, kv_len, chunk: int,
                                left_chunks: int,
                                scale: float | None = None) -> torch.Tensor:
     """The plain PyTorch version: scale folded into q in q's dtype, dense
-    float32 scores, the mask, softmax, the result cast back to q's
+    float32 scores (float64 for float64 inputs, a reference for the
+    float32 paths), the mask, softmax, the result cast back to q's
     dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    acc = torch.promote_types(q.dtype, torch.float32)
     qs = (q * scale).to(q.dtype)
-    s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+    s = torch.einsum("bhqd,bhkd->bhqk", qs.to(acc), k.to(acc))
     mask = visible_mask(q.shape[2], kv_len.to(q.device), chunk, left_chunks)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.to(acc)).to(q.dtype)
 
 
 def rounded_delta_shift(q, k, v, out, dout, kv_len, chunk: int,

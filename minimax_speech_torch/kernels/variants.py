@@ -1,6 +1,7 @@
 """Time design variants of the attention kernels K1 and K2 on one GPU.
 
     python -m minimax_speech_torch.kernels.variants [variant ...]
+    python -m minimax_speech_torch.kernels.variants --flow-grads [variant ...]
 
 Each variant is a copy of csrc/ under build/variants/<name>/ with one
 change to the committed sources, built by kernels/build.py and timed at
@@ -24,6 +25,24 @@ variants:
   fixed_b       every B fragment of a k-step read from one address: the
                 products are kept, most B loads and splits are gone
                 (wrong results, timing only)
+  tf32x4        the fourth TF32 product of a split pair (a_lo b_lo) added
+  rn_acc        each 3xTF32 product summed into a zeroed fragment, then
+                added to the accumulator by fp32 adds (round to nearest),
+                so the tensor cores never carry a long sum
+
+--flow-grads measures K2's accuracy where the flow's training reaches
+it (run from the repo root; needs chip_smoke.py): the first-step
+gradients of chip_smoke.py's phase-22 flow (1 mid UNet stage, 1 + 1
+encoder blocks, full widths, its batch) on the card with each variant,
+for each of FLOW_SEEDS (weights and draws), against a float64 run on
+the CPU: the worst leaf among the UNet's to_q and to_k weights (their
+gradient comes only through K2's dq and dk) and among the other leaves,
+each as max |diff| over the leaf's largest, beside the CPU's float32.
+Besides the variants above it takes one of kernels/splash.py's
+backward:
+
+  plain_delta   Delta = rowsum(dO * O) from the plain version's float32
+                output instead of the forward kernel's
 """
 from __future__ import annotations
 
@@ -54,6 +73,18 @@ VARIANTS = {
                  '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, '
                  '{%0, %1, %2, %3};\\n"',
                  'asm volatile(""')],
+    "tf32x4": [("  if (kSplitB) mma(d, ah, bl);\n",
+                "  if (kSplitB) mma(d, ah, bl);\n"
+                "  if (kSplitA && kSplitB) mma(d, al, bl);\n")],
+    "rn_acc": [("  if (kSplitA) mma(d, al, bh);\n"
+                "  if (kSplitB) mma(d, ah, bl);\n"
+                "  mma(d, ah, bh);\n}",
+                "  float p[4] = {0.f, 0.f, 0.f, 0.f};\n"
+                "  if (kSplitA) mma(p, al, bh);\n"
+                "  if (kSplitB) mma(p, ah, bl);\n"
+                "  mma(p, ah, bh);\n"
+                "#pragma unroll\n"
+                "  for (int e = 0; e < 4; ++e) d[e] += p[e];\n}")],
     "fixed_b": [("to_f(b[(8 * n + g) * S + c])", "to_f(b[g * S + c])"),
                 ("to_f(b[(8 * n + g) * S + c + 4])", "to_f(b[g * S + c + 4])"),
                 ("to_f(r0[8 * n])", "to_f(r0[0])"),
@@ -61,6 +92,23 @@ VARIANTS = {
 }
 # the lengths of chip_smoke.py's LM training batch (its lm_batch)
 LM_LENS = [472, 427, 400, 349, 357, 301, 308, 296]
+# --flow-grads: the seeds of the weights and draws (phase 22 runs 5)
+FLOW_SEEDS = (5, 6, 7, 8)
+
+
+def _plain_delta(backward):
+    """K2's backward taking Delta from the plain version's output."""
+    def run(q, k, v, kv_len, chunk, left_chunks, out, lse, dout):
+        plain = splash.reference_splash_attention(q, k, v, kv_len, chunk,
+                                                  left_chunks, scale=1.0)
+        return backward(q, k, v, kv_len, chunk, left_chunks, plain, lse,
+                        dout)
+    return run
+
+
+# variants of kernels/splash.py's backward: a function of the committed
+# _kernel_backward that replaces it
+BACKWARDS = {"plain_delta": _plain_delta}
 
 
 def warp_pairs(lens, seq: int, chunk: int = 1, left: int = -1):
@@ -188,5 +236,53 @@ def main(names) -> int:
     return 0
 
 
+def flow_grads(names) -> int:
+    if not torch.cuda.is_available():
+        print("variants: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from minimax_speech_torch.infer.pipeline import TTSConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(torch.cuda.get_device_name(0), "|", cs.card_info(), flush=True)
+    flow_cfg = TTSConfig().flow
+    cfg, batch = cs.reduced_flow(flow_cfg), cs.flow_batch(flow_cfg)
+    src = build.CSRC
+    root = build.BUILD_DIR.parent / "variants"
+    committed = splash._kernel_backward
+    for seed in FLOW_SEEDS:
+        truth, _ = cs.flow_first_grads(cfg, batch, "cpu", seed, double=True)
+        symmetric, k2_leaves = cs.flow_leaves(list(truth))
+        cpu, _ = cs.flow_first_grads(cfg, batch, "cpu", seed)
+
+        def report(label, grads):
+            err = cs.grad_errors(grads, truth, symmetric)
+            k2 = max(err[n] for n in k2_leaves)
+            rest = max(e for n, e in err.items() if n not in k2_leaves)
+            vs_cpu = cs.grad_errors(grads, cpu, symmetric)
+            print(f"[flow-grads] seed {seed} {label:12s} against float64: "
+                  f"to_q/to_k {k2:.3e} ({max(k2_leaves, key=err.get)}), "
+                  f"other leaves {rest:.3e} | to_q/to_k against the CPU's "
+                  f"float32 {max(vs_cpu[n] for n in k2_leaves):.3e} | "
+                  f"K2_GRAD_RTOL {cs.K2_GRAD_RTOL:g}: "
+                  f"{'over' if k2 > cs.K2_GRAD_RTOL else 'within'}",
+                  flush=True)
+
+        report("CPU float32", cpu)
+        for name in names:
+            wrap = BACKWARDS.get(name)
+            use(make_sources("committed" if wrap else name, src,
+                             root / name))
+            splash._kernel_backward = wrap(committed) if wrap else committed
+            report(name, cs.flow_first_grads(cfg, batch, "cuda", seed)[0])
+        splash._kernel_backward = committed
+    use(src)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--flow-grads"]:
+        sys.exit(flow_grads(sys.argv[2:] or
+                            ["committed", *BACKWARDS, "tf32x4", "tf32x1"]))
     sys.exit(main(sys.argv[1:] or list(VARIANTS)))

@@ -1,12 +1,18 @@
-"""Conditional flow matching inference: Euler ODE sampling with CFG.
+"""Conditional flow matching: the OT-CFM training loss and Euler ODE
+sampling with CFG.
 
-Port of the inference part of minimax_speech_tpu/models/cfm.py: the
-cosine t-schedule, the fixed numpy noise table, and the Euler solvers
-with classifier-free guidance as a batch of 2 (conditional and
-unconditional branches in one estimator call per step): `solve_euler`
-over a whole sequence, and for chunked streaming `solve_euler_collect`
-(the prompt, collecting the estimator's state at every step) and
-`solve_euler_chunk` (one chunk against those states).
+Port of minimax_speech_tpu/models/cfm.py. Training (`compute_loss`):
+cosine t-schedule, immiscible noise (the nearest of k candidates), CFG
+dropout, and the contrastive loss against a derangement of the batch.
+Its random draws come in as one explicit `CFMDraws` value
+(`make_draws` makes it from a torch.Generator on the model's device),
+so that a test can feed both packages the same numbers. Inference: the
+fixed numpy noise table, and the Euler solvers with classifier-free
+guidance as a batch of 2 (conditional and unconditional branches in one
+estimator call per step): `solve_euler` over a whole sequence, and for
+chunked streaming `solve_euler_collect` (the prompt, collecting the
+estimator's state at every step) and `solve_euler_chunk` (one chunk
+against those states).
 """
 from __future__ import annotations
 
@@ -40,6 +46,81 @@ def make_fixed_noise(max_frames: int = 15000, n_feats: int = 80,
     numbers as the JAX package's for the same seed."""
     rng = np.random.default_rng(seed)
     return rng.standard_normal((max_frames, n_feats)).astype(np.float32)
+
+
+@dataclass
+class CFMDraws:
+    """The random numbers of one `compute_loss` call, as JAX's
+    compute_loss draws them from its key: t (B,) uniform in [0, 1)
+    before the cosine schedule; cand (B, k, T, D) standard normal noise
+    candidates (k = 1 without immiscible noise); keep (B,) the CFG
+    dropout's keep mask (1.0 or 0.0); perm (B,) a permutation of
+    range(B) before the derangement's fix-up."""
+    t: torch.Tensor
+    cand: torch.Tensor
+    keep: torch.Tensor
+    perm: torch.Tensor
+
+
+def make_draws(cfg: CFMConfig, b: int, t: int, d: int,
+               generator: torch.Generator) -> CFMDraws:
+    """CFMDraws for a (B, T, D) target from `generator`, on its device."""
+    dev = generator.device
+    k = cfg.immiscible_k if cfg.use_immiscible else 1
+    return CFMDraws(
+        t=torch.rand(b, generator=generator, device=dev),
+        cand=torch.randn(b, k, t, d, generator=generator, device=dev),
+        keep=(torch.rand(b, generator=generator, device=dev)
+              > cfg.training_cfg_rate).float(),
+        perm=torch.randperm(b, generator=generator, device=dev))
+
+
+def immiscible_noise(x1: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """The candidate (B, k, T, D) nearest (L2) to each target (B, T, D)."""
+    b, k = cand.shape[:2]
+    dist = (cand - x1[:, None]).reshape(b, k, -1).square().sum(-1)
+    best = dist.argmin(dim=1)
+    return cand[torch.arange(b, device=cand.device), best]
+
+
+def derangement(perm: torch.Tensor) -> torch.Tensor:
+    """perm with each self-pair redirected to the next index (mod B), as
+    JAX's derangement fixes its permutation up; B = 1 keeps its
+    self-pair."""
+    idx = torch.arange(perm.shape[0], device=perm.device)
+    return torch.where(perm == idx, (idx + 1) % perm.shape[0], perm)
+
+
+def compute_loss(estimator: Callable, x1: torch.Tensor, mask: torch.Tensor,
+                 mu: torch.Tensor, spks: torch.Tensor, cond: torch.Tensor,
+                 cfg: CFMConfig, draws: CFMDraws,
+                 streaming: bool = False) -> torch.Tensor:
+    """The OT-CFM loss (contrastive with cfg.use_contrastive_fm).
+    x1, mu, cond: (B, T, D); mask: (B, T) float; spks: (B, D);
+    `estimator(x, mask, mu, t, spks, cond, streaming=)` returns the
+    velocity. The loss averages over mask.sum() * D."""
+    d = x1.shape[-1]
+    t = draws.t.to(x1.dtype)[:, None, None]
+    if cfg.t_scheduler == "cosine":
+        t = cosine_schedule(t)
+    cand = draws.cand.to(x1.dtype)
+    z = immiscible_noise(x1, cand) if cfg.use_immiscible else cand[:, 0]
+    y = (1.0 - (1.0 - cfg.sigma_min) * t) * z + t * x1
+    u_pos = x1 - (1.0 - cfg.sigma_min) * z
+    if cfg.training_cfg_rate > 0:
+        keep = draws.keep.to(x1.dtype)
+        mu = mu * keep[:, None, None]
+        spks = spks * keep[:, None]
+        cond = cond * keep[:, None, None]
+    pred = estimator(y, mask, mu, t[:, 0, 0], spks, cond, streaming=streaming)
+    m = mask[..., None]
+    denom = mask.sum() * d
+    pos_loss = (((pred - u_pos) * m) ** 2).sum() / denom
+    if not cfg.use_contrastive_fm:
+        return pos_loss
+    u_neg = u_pos[derangement(draws.perm)]
+    neg_loss = (((pred - u_neg) * m) ** 2).sum() / denom
+    return pos_loss - cfg.contrastive_lambda * neg_loss
 
 
 def euler_grid(n_timesteps: int, cfg: CFMConfig):

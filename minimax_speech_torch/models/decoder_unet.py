@@ -5,16 +5,24 @@ latent frames: down stage(s), mid stages and up stage(s), each a causal
 resnet block plus transformer blocks. Channel-last (B, T, C).
 
 Every full-sequence call whose mask is the key-pad mask, alone or with
-the static chunk mask (`streaming`), attends through K1
-(kernels/flash_attention.py) with the frame mask as key lengths: the
-kernel on CUDA, its plain version on the CPU. With a prefix frame mask
-this is the function of the JAX package's XLA branch
-(add_optional_chunk_mask) on every query row that sees a key. That
-covers the one-shot paths, the streaming prefill (`collect_len`) and
-the non-chunked streaming session. Two masks K1 cannot express stay
-plain torch ops, as they are XLA ops in the JAX package: the cached
+the static chunk mask (`streaming`), attends through a kernel with the
+frame mask as key lengths, chosen by grad mode: without grad (every
+inference path, and the training CLI's cv loss) through K1
+(kernels/flash_attention.py, forward only); under grad, when autograd
+records q, k or v (the flow training step), through K2
+(kernels/splash.py, differentiable), as the JAX package's splash
+backend passes kv_len, chunk and left_chunks. Each is its kernel on
+CUDA and its plain version on the CPU. With a prefix frame mask K1
+computes the function of the JAX package's XLA branch
+(add_optional_chunk_mask) on every query row that sees a key. K2's
+segment mask differs from it on pad query rows only, which attend to
+pad keys there instead of valid ones; no valid row reads a pad row
+(every conv input is masked and causal, attention at a valid query sees
+valid keys only) and the loss masks pad rows, so losses, gradients and
+valid rows are the same functions. Two masks neither kernel expresses
+stay plain torch ops, as they are XLA ops in the JAX package: the cached
 chunk mode (window K/V tail plus the chunk) and the prompt-anchored unit
-grid (`unit_align`).
+grid (`unit_align`); both run without grad only.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from minimax_speech_torch.kernels.flash_attention import flash_attention
+from minimax_speech_torch.kernels.splash import splash_chunk_attention
 from minimax_speech_torch.ops import masks as mask_ops
 
 
@@ -132,7 +141,8 @@ class CausalResnetBlock1D(nn.Module):
 class Attention:
     """How a transformer block attends: with `bias` (an additive
     (B or 1, 1, Tq, Tk) float32 tensor) by plain torch ops, else through
-    K1 with key lengths `kv_len` (B,) and K1's chunk mask."""
+    K1 (no grad) or K2 (under grad) with key lengths `kv_len` (B,) and
+    the kernels' chunk mask."""
     kv_len: torch.Tensor | None = None
     chunk: int = 0
     left_chunks: int = -1
@@ -185,9 +195,11 @@ class UNetTransformerBlock(nn.Module):
             def heads(y):  # (B, T, H, D) -> contiguous (B, H, T, D)
                 return y.transpose(1, 2).contiguous()
 
-            o = flash_attention(heads(q), heads(k), heads(v),
-                                kv_len=attn.kv_len, chunk=attn.chunk,
-                                left_chunks=attn.left_chunks).transpose(1, 2)
+            under_grad = torch.is_grad_enabled() and any(
+                y.requires_grad for y in (q, k, v))
+            kernel = splash_chunk_attention if under_grad else flash_attention
+            o = kernel(heads(q), heads(k), heads(v), attn.kv_len,
+                       attn.chunk, attn.left_chunks).transpose(1, 2)
         x = x + self.to_out(o.reshape(b, t, -1))
         h = F.gelu(self.ff_in(self.norm3(x)))
         return x + self.ff_out(h)
@@ -258,7 +270,7 @@ class CausalConditionalDecoder(nn.Module):
             attn = boolmask[:, None, :] & mask_ops.unit_chunk_mask(
                 tlen, unit_align, cfg.static_chunk_size, window, device=dev)
             return Attention(bias=mask_ops.mask_to_bias(attn[:, None]))
-        # the key-pad mask [& the static chunk mask]: K1's function
+        # the key-pad mask [& the static chunk mask]: K1's and K2's function
         return Attention(
             kv_len=boolmask.sum(dim=1, dtype=torch.int32),
             chunk=cfg.static_chunk_size if streaming else 0,
@@ -273,15 +285,15 @@ class CausalConditionalDecoder(nn.Module):
         spks: (B, 80). Returns the velocity (B, T, 80).
 
         streaming: the static chunk mask (chunk `static_chunk_size`, left
-        `num_left_chunks`) through K1; with unit_align (the prompt length
-        in frames) the prompt-anchored unit grid limited to `window` left
-        frames instead, by plain masked attention (the full-sequence twin
-        of the chunked path). collect_len: the prompt's valid length; the
-        full pass also returns the streaming state (velocity, state
-        dict). cache: one chunk starting at absolute frame cache_offset,
-        q_valid frames valid, against the state dict of the previous call
-        (window-frame K/V tails, attended by plain torch ops); returns
-        (velocity, new state dict)."""
+        `num_left_chunks`) through K1 or K2; with unit_align (the prompt
+        length in frames) the prompt-anchored unit grid limited to
+        `window` left frames instead, by plain masked attention (the
+        full-sequence twin of the chunked path). collect_len: the
+        prompt's valid length; the full pass also returns the streaming
+        state (velocity, state dict). cache: one chunk starting at
+        absolute frame cache_offset, q_valid frames valid, against the
+        state dict of the previous call (window-frame K/V tails, attended
+        by plain torch ops); returns (velocity, new state dict)."""
         b, tlen, _ = x.shape
         collect = collect_len is not None
         chunked = cache is not None

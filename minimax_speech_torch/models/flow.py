@@ -1,16 +1,25 @@
-"""Stage-2 flow model, inference: FSQ tokens -> DAC-VAE latents.
+"""Stage-2 flow model: FSQ tokens -> DAC-VAE latents.
 
-Port of the inference half of minimax_speech_tpu/models/flow.py: token
-embedding -> UpsampleConformerEncoder (2x to the latent rate) -> Dense
-to 80 -> 10-step CFG Euler with the causal UNet estimator. The prompt
-latents condition the solve through `cond`; speaker conditioning is the
-projected 192-d embedding. Three entry points: `flow_inference_batched`
-(the fused path), `flow_inference` (one utterance, full or streaming
-with the lookahead tokens held back as context) and
-`flow_inference_unit_grid` (the full-sequence twin of the chunked
-streaming path, infer/stream_flow.py); the chunked path itself drives
-`stream_encode_prefill` / `stream_encode_chunk` and the UNet's
-collect and chunk modes.
+Port of minimax_speech_tpu/models/flow.py: token embedding ->
+UpsampleConformerEncoder (2x to the latent rate) -> Dense to 80 -> CFM
+with the causal UNet estimator; speaker conditioning is the projected
+192-d embedding.
+
+Training (`FlowModel.forward`): the (contrastive, immiscible) OT-CFM
+loss on the standardized target latents, with half the samples
+conditioned on a random prefix (up to 30%) of their target. Its random
+draws come in as one `FlowDraws` value (`make_flow_draws` makes it from
+a torch.Generator on the model's device), in the order JAX splits its
+key, so a test can feed both packages the same numbers.
+
+Inference: 10-step CFG Euler, the prompt latents conditioning the solve
+through `cond`. Three entry points: `flow_inference_batched` (the fused
+path), `flow_inference` (one utterance, full or streaming with the
+lookahead tokens held back as context) and `flow_inference_unit_grid`
+(the full-sequence twin of the chunked streaming path,
+infer/stream_flow.py); the chunked path itself drives
+`stream_encode_prefill` / `stream_encode_chunk` and the UNet's collect
+and chunk modes.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ from minimax_speech_torch.models import cfm
 from minimax_speech_torch.models.decoder_unet import (CausalConditionalDecoder,
                                                       DecoderUNetConfig)
 from minimax_speech_torch.models.speaker_encoder import (
-    LearnableSpeakerEncoder, SpeakerEncoderConfig)
+    LearnableSpeakerEncoder, SpeakerEncoderConfig, l2_normalize)
 from minimax_speech_torch.models.upsample_encoder import (
     UpsampleConformerEncoder, UpsampleEncoderConfig)
 from minimax_speech_torch.ops import masks as mask_ops
@@ -76,6 +85,28 @@ def latent_denormalize(cfg: FlowConfig, x: torch.Tensor) -> torch.Tensor:
     return x * std + mean
 
 
+@dataclass
+class FlowDraws:
+    """The random numbers of one training loss, as JAX's FlowModel splits
+    its key into (k_on, k_idx, k_cfm): use_cond (B,) bool, whether a
+    sample sees a prefix of its target; frac (B,) uniform in [0, 1), the
+    prefix as a share of 30% of feat_len; cfm, compute_loss's draws."""
+    use_cond: torch.Tensor
+    frac: torch.Tensor
+    cfm: cfm.CFMDraws
+
+
+def make_flow_draws(cfg: FlowConfig, b: int, t_feat: int,
+                    generator: torch.Generator) -> FlowDraws:
+    """FlowDraws for a batch of b targets of t_feat frames, on the
+    generator's device."""
+    dev = generator.device
+    return FlowDraws(
+        use_cond=torch.rand(b, generator=generator, device=dev) < 0.5,
+        frac=torch.rand(b, generator=generator, device=dev),
+        cfm=cfm.make_draws(cfg.cfm, b, t_feat, cfg.output_size, generator))
+
+
 class FlowModel(nn.Module):
     def __init__(self, cfg: FlowConfig = FlowConfig()):
         super().__init__()
@@ -91,7 +122,15 @@ class FlowModel(nn.Module):
             self.speaker_encoder = LearnableSpeakerEncoder(c.speaker)
 
     def embed_speaker(self, reference_mel, reference_mask=None):
-        """(B, T, 80) reference mel -> (B, 192) unit-norm embedding."""
+        """(B, T, 80) reference mel -> (B, 192) unit-norm embedding; a
+        multi-crop (B, N, T, 80) batch embeds each crop, then averages
+        and re-normalizes."""
+        if reference_mel.dim() == 4:
+            b, n, t, d = reference_mel.shape
+            mask = None if reference_mask is None \
+                else reference_mask.reshape(b * n, t)
+            e = self.speaker_encoder(reference_mel.reshape(b * n, t, d), mask)
+            return l2_normalize(e.reshape(b, n, -1).mean(dim=1))
         return self.speaker_encoder(reference_mel, reference_mask)
 
     def embed_tokens(self, token):
@@ -100,9 +139,9 @@ class FlowModel(nn.Module):
     def encode_tokens(self, token, token_len, context=None,
                       streaming: bool = False, chunk_align=None):
         """tokens (B, T) -> ((B, 2T, 80) projected encoder output, lens)."""
-        t = token.shape[1]
-        m = mask_ops.make_non_pad_mask(token_len, t).float()
-        h = self.embed_tokens(token) * m[..., None]
+        h = self.embed_tokens(token)
+        m = mask_ops.make_non_pad_mask(token_len, token.shape[1])
+        h = h * m[..., None].to(h.dtype)
         h, h_len = self.encoder(h, token_len, context=context,
                                 streaming=streaming, chunk_align=chunk_align)
         return self.encoder_proj(h), h_len
@@ -135,6 +174,26 @@ class FlowModel(nn.Module):
     def project_speaker(self, embedding):
         """(B, 192) -> (B, 80) speaker conditioning for the estimator."""
         return self.spk_embed_affine_layer(embedding)
+
+    def forward(self, token, token_len, feat, feat_len, embedding,
+                draws: FlowDraws, streaming: bool = False) -> torch.Tensor:
+        """The training loss. token: (B, Tt) FSQ tokens; feat: (B, 2*Tt,
+        80) raw target latents; embedding: (B, 192) normalized speaker
+        embedding. streaming: chunk masks in the encoder and the UNet."""
+        c = self.cfg
+        spks = self.spk_embed_affine_layer(embedding)
+        feat = latent_normalize(c, feat)
+        mu, h_len = self.encode_tokens(token, token_len, streaming=streaming)
+        tf = feat.shape[1]
+        mask = mask_ops.make_non_pad_mask(h_len, tf).to(feat.dtype)
+        # a random prefix (up to 30%) of the target as conditioning, for
+        # half the samples
+        idx = (draws.frac * 0.3 * feat_len.float()).to(torch.int32)
+        pos = torch.arange(tf, device=feat.device)[None]
+        cond_mask = (pos < idx[:, None]) & draws.use_cond[:, None]
+        conds = feat * cond_mask[..., None].to(feat.dtype)
+        return cfm.compute_loss(self.estimate, feat, mask, mu, spks, conds,
+                                c.cfm, draws.cfm, streaming=streaming)
 
     def prepare_inference(self, token, token_len, prompt_feat, embedding,
                           streaming: bool = False, finalize: bool = True,

@@ -1,9 +1,11 @@
-"""The LM training step: forward, backward, clip, update, metrics.
+"""The LM and flow training steps: forward, backward, clip, update,
+metrics.
 
-Port of the LM half of minimax_speech_tpu/train/steps.py (the flow step
-comes with the flow training slice). PyTorch runs eagerly, so a step is
-a plain function that updates the state in place; the metrics stay on
-the device until a caller reads them.
+Port of minimax_speech_tpu/train/steps.py. PyTorch runs eagerly, so a
+step is a plain function that updates the state in place; the metrics
+stay on the device until a caller reads them. The flow step takes its
+random draws (models/flow.FlowDraws) as an argument, where the JAX step
+takes a key.
 
 bf16=True runs the forward and backward through bfloat16 copies of the
 float32 parameters (torch.func.functional_call), with the batch's float
@@ -25,6 +27,9 @@ from minimax_speech_torch.utils.params_io import named_flax_params
 
 LM_NORM_GROUPS = {"llm": "llm/", "decoder": "llm_decoder",
                   "speech_emb": "speech_embedding"}
+# substrings of flax paths, as JAX matches them: "encoder" also takes the
+# speaker encoder and encoder_proj
+FLOW_NORM_GROUPS = {"encoder": "encoder", "estimator": "estimator"}
 
 
 @dataclass
@@ -58,6 +63,15 @@ def grad_norms_by_component(named_grads, groups: dict[str, str]) -> dict:
     return out
 
 
+def _reference_mask(batch: dict):
+    """The reference mels' (B, T) frame mask, or None without lengths."""
+    if "reference_mel_len" not in batch:
+        return None
+    t = batch["reference_mel"].shape[1]
+    return (torch.arange(t, device=batch["reference_mel"].device)[None]
+            < batch["reference_mel_len"][:, None])
+
+
 class _LMLoss(nn.Module):
     """The LM loss as one module call, so that functional_call can swap
     in bf16 parameters: speaker conditioning from the batch's reference
@@ -71,17 +85,35 @@ class _LMLoss(nn.Module):
     def forward(self, batch: dict):
         m = self.model
         if "reference_mel" in batch:
-            mel = batch["reference_mel"]
-            mask = None
-            if "reference_mel_len" in batch:
-                t = mel.shape[1]
-                mask = (torch.arange(t, device=mel.device)[None]
-                        < batch["reference_mel_len"][:, None])
-            spk = m.embed_speaker(mel, mask)
+            spk = m.embed_speaker(batch["reference_mel"],
+                                  _reference_mask(batch))
         else:
             spk = batch["spk_emb"]
         return m(batch["src_type"], batch["tok_id"], batch["target"],
                  batch["seq_len"], spk)
+
+
+class _FlowLoss(nn.Module):
+    """The flow loss as one module call: the speaker embedding from the
+    batch's reference mels through the speaker encoder (detached when
+    cfg.freeze_speaker_encoder, as the JAX step stops its gradient) or
+    the batch's embedding, then the CFM loss."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: dict, draws, streaming: bool = False):
+        m = self.model
+        if "reference_mel" in batch:
+            emb = m.embed_speaker(batch["reference_mel"],
+                                  _reference_mask(batch))
+            if m.cfg.freeze_speaker_encoder:
+                emb = emb.detach()
+        else:
+            emb = batch["embedding"]
+        return m(batch["token"], batch["token_len"], batch["feat"],
+                 batch["feat_len"], emb, draws, streaming=streaming)
 
 
 def _cast_floats(batch: dict, dtype) -> dict:
@@ -89,21 +121,33 @@ def _cast_floats(batch: dict, dtype) -> dict:
             for k, v in batch.items()}
 
 
+def _loss_fn(wrapper: nn.Module, model, bf16: bool):
+    """wrapper's call, or with bf16 its call through bfloat16 copies of
+    the parameters and of the batch's float tensors."""
+    def loss_fn(batch, *args, **kw):
+        if not bf16:
+            return wrapper(batch, *args, **kw)
+        params = {f"model.{n}": p.to(torch.bfloat16)
+                  for n, p in model.named_parameters()}
+        return torch.func.functional_call(
+            wrapper, params, (_cast_floats(batch, torch.bfloat16), *args),
+            kw)
+
+    return loss_fn
+
+
 def make_lm_loss_fn(model, bf16: bool = False):
     """loss_fn(batch) -> (loss, acc): batch holds the plan tensors
     (src_type, tok_id, target, seq_len) and reference_mel (+
     reference_mel_len) or spk_emb, on the model's device."""
-    wrapper = _LMLoss(model)
+    return _loss_fn(_LMLoss(model), model, bf16)
 
-    def loss_fn(batch):
-        if not bf16:
-            return wrapper(batch)
-        params = {f"model.{n}": p.to(torch.bfloat16)
-                  for n, p in model.named_parameters()}
-        return torch.func.functional_call(
-            wrapper, params, (_cast_floats(batch, torch.bfloat16),))
 
-    return loss_fn
+def make_flow_loss_fn(model, bf16: bool = False):
+    """loss_fn(batch, draws, streaming=False) -> loss: batch holds token,
+    token_len, feat, feat_len and reference_mel (+ reference_mel_len) or
+    embedding, on the model's device; draws a models.flow.FlowDraws."""
+    return _loss_fn(_FlowLoss(model), model, bf16)
 
 
 def make_lm_train_step(model, bf16: bool = False, device=None):
@@ -116,17 +160,41 @@ def make_lm_train_step(model, bf16: bool = False, device=None):
     names = [path for path, _ in named_flax_params(model)]
 
     def step(state: TrainState, batch):
-        params = state.params()
         loss, acc = loss_fn(batch)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        metrics = {"loss": loss.detach(), "acc": acc.detach(),
-                   "grad_norm": global_norm(grads),
-                   **grad_norms_by_component(list(zip(names, grads)),
-                                             LM_NORM_GROUPS)}
-        state.optimizer.apply(params, grads, state.opt_state)
-        state.step += 1
-        return state, metrics
+        return state, {**_apply(state, loss, names, LM_NORM_GROUPS),
+                       "acc": acc.detach()}
 
     return step
+
+
+def make_flow_train_step(model, bf16: bool = False, device=None,
+                         streaming: bool = False):
+    """Returns step(state, batch, draws) -> (state, metrics); batch as
+    make_flow_loss_fn takes it, draws a models.flow.FlowDraws. Metrics:
+    loss, grad_norm (before the clip) and grad_norm/<component>. A frozen
+    speaker encoder gets zero gradients, so with no weight decay AdamW
+    leaves it as it is. The model must live on `device` (default cuda,
+    which raises without a GPU)."""
+    check_on(model, resolve_device(device), "the flow model")
+    loss_fn = make_flow_loss_fn(model, bf16=bf16)
+    names = [path for path, _ in named_flax_params(model)]
+
+    def step(state: TrainState, batch, draws):
+        loss = loss_fn(batch, draws, streaming=streaming)
+        return state, _apply(state, loss, names, FLOW_NORM_GROUPS)
+
+    return step
+
+
+def _apply(state: TrainState, loss, names, groups) -> dict:
+    """Backward, the optimizer's update and one step on the counter;
+    returns loss, grad_norm and grad_norm/<component>."""
+    params = state.params()
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
+               **grad_norms_by_component(list(zip(names, grads)), groups)}
+    state.optimizer.apply(params, grads, state.opt_state)
+    state.step += 1
+    return metrics

@@ -20,7 +20,8 @@ Against the port's own verified pieces: a `BatchSynthesizer` row equals
 `synthesize_fused` of that request alone (tokens identical, PCM within 2
 LSB); each stream of a `BatchStreamingSession` of 3 equals the same
 session run on that stream alone (tokens identical, audio within 1e-4);
-the `TTS` API's four modes, its speaker cache and speed.
+the `TTS` API's four modes, its speaker cache and speed; and
+`TTS.inference_vc` against JAX's `TTS` (PCM within 2 LSB).
 """
 import dataclasses
 
@@ -355,6 +356,24 @@ def test_tts_modes(tts):
     # the output tracks the source's token count exactly
     assert wav.shape[1] == len(tts.pipeline.extract_prompt_tokens(source)) \
         * 2 * 480
+
+
+def test_tts_inference_vc_matches_jax(trees, tts):
+    """TTS.inference_vc (S3 tokens of the source, flow and DAC; no LM and
+    no noise draws) against JAX's TTS on the same weights and audio: the
+    same number of samples, PCM within 2 LSB."""
+    from minimax_speech_tpu.infer import api as j_api
+
+    jcfg, _ = tiny_port_cfg()
+    ref_tts = j_api.TTS(pipeline=j_pl.TTSPipeline(
+        jcfg, trees["lm"], trees["flow"], trees["codec"], trees["s3"]))
+    rng = np.random.default_rng(12)
+    prompt = synthetic_audio(rng, 0.5, 16000)
+    source = synthetic_audio(rng, 0.8, 16000)
+    ref = list(ref_tts.inference_vc(source, prompt))[0]["tts_speech"]
+    ours = list(tts.inference_vc(source, prompt))[0]["tts_speech"]
+    assert ours.shape == ref.shape and ours.shape[1] > 0
+    assert np.abs(_pcm(ours) - _pcm(ref)).max() <= 2
 
 
 def test_tts_speaker_cache_round_trip_and_speed(tts, tmp_path):

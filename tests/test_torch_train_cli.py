@@ -1,15 +1,17 @@
-"""The port's LM data pipeline and training CLI, on the CPU.
+"""The port's data pipeline and training CLI, LM and flow, on the CPU.
 
 The data stages against the JAX package's with Python's `random` seeded
 the same way (int arrays equal, reference mels to 1e-4: the two hosts'
 float32 STFTs sum in other orders), the CLI for one epoch on a tiny
-synthetic corpus (configs/tiny.yaml, --device cpu): metrics, checkpoint,
-resume, the two run-key fixes, and an --export_npz that JAX's SpeechLM
-loads.
+synthetic corpus (configs/tiny.yaml, --device cpu) with --model llm and
+--model flow: metrics, checkpoint, resume, the two run-key fixes, and an
+--export_npz that JAX's SpeechLM or FlowModel loads; the executor's
+per-step draws.
 """
 import json
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,8 +25,10 @@ from minimax_speech_tpu.infer import frontend as j_fe
 from tests.test_train_cli import make_corpus
 
 
-def _chain(dp, tokenizer, lst, frames=300):
+def _chain(dp, tokenizer, lst, frames=300, model_kind="llm"):
     items = [{"src": line} for line in lst.read_text().splitlines()]
+    pad = dp.padding_flow if model_kind == "flow" else \
+        (lambda it: dp.padding_llm(it, bistream_prob=0.5))
     return [
         lambda it: dp.individual_file_opener(it),
         lambda it: dp.tokenize(it, tokenizer),
@@ -32,16 +36,26 @@ def _chain(dp, tokenizer, lst, frames=300):
         lambda it: dp.shuffle(it, 1000),
         lambda it: dp.sort_by_len(it, 500),
         lambda it: dp.dynamic_batch(it, frames),
-        lambda it: dp.padding_llm(it, bistream_prob=0.5),
+        pad,
     ], dp.DataList(items)
 
 
 def test_lm_batches_match_jax(tmp_path, rng):
+    _assert_batches_match(tmp_path, rng, "llm")
+
+
+def test_flow_batches_match_jax(tmp_path, rng):
+    """The flow chain, ending in padding_flow: tokens, latents and their
+    lengths identical, reference mels to 1e-4."""
+    _assert_batches_match(tmp_path, rng, "flow")
+
+
+def _assert_batches_match(tmp_path, rng, model_kind):
     lst = make_corpus(tmp_path, rng, n=6)
     out = {}
     for name, dp, tok in (("jax", j_dp, j_fe.get_tokenizer(None)),
                           ("port", t_dp, t_fe.get_tokenizer(None))):
-        stages, source = _chain(dp, tok, lst)
+        stages, source = _chain(dp, tok, lst, model_kind=model_kind)
         source.set_epoch(3)
         random.seed(11)
         out[name] = list(dp.build_dataset(source, stages))
@@ -67,17 +81,19 @@ def test_byte_tokenizer_and_unported_paths(tmp_path):
     mp3.write_bytes(b"ID3\x04" + bytes(32))
     with pytest.raises(NotImplementedError, match="mp3"):
         list(t_dp.individual_file_opener([{"src": str(mp3)}]))
-    for extra in (["--model", "flow"], ["--model", "llm", "--dpo"],
+    for extra in (["--model", "flow", "--dpo"], ["--model", "llm", "--dpo"],
                   ["--model", "llm", "--distributed"],
-                  ["--model", "llm", "--tp", "2"]):
+                  ["--model", "flow", "--distributed"],
+                  ["--model", "llm", "--tp", "2"],
+                  ["--model", "flow", "--dp", "2"]):
         args = t_cli.parse_args(extra + ["--train_data", "x",
                                          "--model_dir", "y"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_cli.check_ported(args)
 
 
-def _cli_args(lst, model_dir, *extra):
-    return ["--model", "llm", "--config", "configs/tiny.yaml",
+def _cli_args(lst, model_dir, *extra, model="llm"):
+    return ["--model", model, "--config", "configs/tiny.yaml",
             "--train_data", str(lst), "--model_dir", str(model_dir),
             "--device", "cpu", "--max_epoch", "1",
             "--override", "train.save_per_step=2",
@@ -132,20 +148,128 @@ def test_cli_epoch_checkpoint_resume_and_export(tmp_path, rng):
     np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
 
 
+def test_flow_cli_epoch_checkpoint_resume_and_export(tmp_path, rng):
+    """--model flow with --latent_stats for one epoch, cv after it (no
+    grad: K1's plain version), a second call that resumes at the saved
+    step, and an --export_npz that JAX's FlowModel (with the same stats)
+    applies: its loss under one JAX key within 1e-5 relative of the
+    port's on that key's draws."""
+    from minimax_speech_tpu import config as j_cfg
+    from minimax_speech_tpu.models import flow as j_flow
+    from minimax_speech_tpu.utils.params_io import load_params
+    from tests.test_torch_flow_train import flow_batch, jax_flow_draws
+
+    lst = make_corpus(tmp_path, rng, n=6)
+    model_dir = tmp_path / "exp"
+    npz = tmp_path / "flow.npz"
+    stats = tmp_path / "latent_stats.json"
+    stats.write_text(json.dumps({"mean": [0.1] * 80, "std": [1.5] * 80}))
+    argv = _cli_args(lst, model_dir, "--latent_stats", str(stats),
+                     model="flow")
+    state = t_cli.main(argv + ["--cv_data", str(lst), "--export_npz",
+                               str(npz)])
+    rows = [json.loads(line) for line in
+            (model_dir / "flow_metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in rows if "loss" in r]
+    assert steps and all(np.isfinite(r["loss"]) for r in steps)
+    assert all(r["grad_norm/encoder"] > 0 and r["grad_norm/estimator"] > 0
+               for r in steps)
+    assert any("cv/loss" in r and np.isfinite(r["cv/loss"]) for r in rows)
+    assert state.module.cfg.latent_std == (1.5,) * 80
+    steps_done = state.step
+    assert steps_done >= 2
+    ckpts = sorted(int(p.name) for p in (model_dir / "ckpt").iterdir())
+    assert ckpts[-1] == steps_done and 2 in ckpts
+
+    again = t_cli.main(argv)
+    assert again.step == steps_done
+    new = (model_dir / "flow_metrics.jsonl").read_text().splitlines()[
+        len(rows):]
+    assert not any("loss" in json.loads(line) for line in new)
+    for a, b in zip(again.module.parameters(), state.module.parameters()):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+    data = j_cfg.apply_overrides(j_cfg.load_yaml("configs/tiny.yaml"), [
+        "model.flow.latent_mean=" + json.dumps([0.1] * 80),
+        "model.flow.latent_std=" + json.dumps([1.5] * 80)])
+    jcfg = j_cfg.build_tts_config(data["model"]).flow
+    batch = flow_batch(seed=4)
+    emb = np.random.default_rng(4).standard_normal((3, 12)).astype(
+        np.float32)
+    key = jax.random.PRNGKey(1)
+    ref = j_flow.FlowModel(jcfg).apply(
+        load_params(str(npz)), *(jnp.asarray(batch[k]) for k in (
+            "token", "token_len", "feat", "feat_len")), jnp.asarray(emb), key)
+    with torch.no_grad():
+        loss = state.module(*(torch.as_tensor(batch[k]) for k in (
+            "token", "token_len", "feat", "feat_len")), torch.as_tensor(emb),
+            jax_flow_draws(key, state.module.cfg, 3, 18))
+    np.testing.assert_allclose(float(loss), float(ref), rtol=1e-5)
+
+
+def test_executor_draws_follow_the_global_step(tmp_path):
+    """A step that takes draws gets them from a generator seeded with
+    (seed << 32) | global step: a run resumed at step 1 draws for it what
+    the uninterrupted run drew; cv batch i draws from seed i, as JAX's
+    PRNGKey(i); a step without draws gets none."""
+    from minimax_speech_torch.train import executor, schedule
+    from minimax_speech_torch.train import steps as t_steps
+    from minimax_speech_torch.utils.logging import MetricsLogger
+
+    seen = []
+
+    def step_fn(state, batch, draws=None):
+        seen.append(draws)
+        state.step += 1
+        return state, {}
+
+    def run(start, n, make_draws):
+        state = t_steps.make_train_state(torch.nn.Linear(2, 2),
+                                         schedule.make_optimizer())
+        state.step = start
+        ex = executor.Executor(step_fn, state, MetricsLogger(
+            str(tmp_path), name="t", log_interval=100), device="cpu",
+            make_draws=make_draws)
+        ex.train_one_epoch([{}] * n)
+        return ex
+
+    def draws(batch, gen):
+        return torch.rand(4, generator=gen)
+
+    run(0, 3, draws)
+    full, seen[:] = list(seen), []
+    run(1, 2, draws)
+    for a, b in zip(seen, full[1:]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    torch.testing.assert_close(full[1], torch.rand(
+        4, generator=torch.Generator().manual_seed((1986 << 32) | 1)))
+    assert not torch.equal(full[0], full[1])
+    ex = run(5, 0, draws)
+    cv = ex.cv([{}] * 2, lambda state, batch, d: {"x": d[0]})
+    np.testing.assert_allclose(cv["cv/x"], np.mean(
+        [float(torch.rand(1, generator=torch.Generator().manual_seed(i)))
+         for i in range(2)]), rtol=1e-6)
+    seen.clear()
+    run(0, 1, None)
+    assert seen == [None]
+
+
 def test_run_key_hashes_data_and_flags(tmp_path):
     a, b = tmp_path / "a.list", tmp_path / "b.list"
     a.write_text("x.wav\n")
     b.write_text("y.wav\n")
 
-    def key(lst, *flags):
+    def key(lst, *flags, model="llm", stats=None):
         return t_cli.run_key({"lr": 1e-4}, 2, str(lst), t_cli.parse_args(
-            ["--model", "llm", "--train_data", str(lst), "--model_dir", "m",
-             *flags]))
+            ["--model", model, "--train_data", str(lst), "--model_dir", "m",
+             *flags]), stats)
 
     base = key(a)
     assert key(a) == base
+    stats = {"mean": [0.0] * 80, "std": [2.0] * 80}
     assert len({base, key(b), key(a, "--bf16"), key(a, "--dpo"),
-                key(a, "--init_ckpt", "w.npz")}) == 5
+                key(a, "--init_ckpt", "w.npz"), key(a, model="flow"),
+                key(a, model="flow", stats=stats)}) == 7
 
 
 def test_resume_rolls_back_whole_epochs(tmp_path):
