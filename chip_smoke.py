@@ -108,10 +108,30 @@ a line; any failure ends the run with a non-zero exit:
      call that resumes at the saved step;
  22. the flow at reduced depth (1 mid UNet stage, 1 + 1 encoder blocks),
      card against CPU with the same weights, batch and draws, and a
-     float64 CPU run: phase 9's checks, except that the first-step
-     gradients of the UNet's to_q and to_k weights (reached only through
-     K2's dq and dk) are held against the float64 run at K2_GRAD_RTOL;
-     both runs' distances to it are printed.
+     float64 CPU run: phase 9's checks on every leaf, the UNet's to_q
+     and to_k weights (reached only through K2's dq and dk) included;
+     both runs' distances to the float64 run are printed;
+ 23. HiFT (the mel mode's vocoder) at the full width of
+     configs/default.yaml, random weights with a voiced f0, on a 5 s mel,
+     card vs CPU: each side's harmonic phase against a float64 cumsum,
+     the decode of one shared source, the whole forward; its time per
+     call (CUDA events) and audio seconds per second;
+ 24. mel mode at full width with phase 4's LM: synthesize_fused and the
+     unfused synthesize (total_s, rtf, HiFT's seconds, 560 K1 launches
+     per flow call), a chunked StreamingSession (time to first chunk,
+     seconds per hop with HiFT's full-prefix decode, K1 per path);
+ 25. mel-mode serving at full width: one BatchSynthesizer call of 4
+     requests (560 K1 launches), then cli/synthesize.main --override
+     model.output_type=mel writing a 24 kHz wav;
+ 26. phase 5's reduced depth in mel mode with phase 23's HiFT, card vs
+     CPU with the same weights and noise: token ids identical, PCM within
+     a limit derived from phase 23's gaps and the f0 both sides computed
+     (mel_pcm_tol);
+ 27. random upstream-layout flow and hift state dicts through torch.save
+     and cli/convert_checkpoint.main into a checkpoint directory: the
+     pipeline loaded from it holds the converter's weights bit for bit
+     and gives the token ids of one built from them in memory, and its
+     PCM within PCM_TOL_LSB.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -121,6 +141,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -184,19 +205,26 @@ TRAIN_LR = 1e-4
 # of each leaf within 1% of lr
 TRAIN_METRIC_RTOL = TRAIN_GRAD_RTOL = 1e-4
 TRAIN_PARAM_TOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_SHARE = 0.05, 1e-6, 1e-3
-# phase 22: the UNet's to_q and to_k weights get their gradient only
-# through K2's dq and dk, which take Delta = rowsum(dO * O) from the
-# forward kernel's output. That output's error shifts every dS of a row
-# alike, and at random weights (near-uniform attention, keys sharing a
-# large mean) such a shift moves dq and dk far more than its size: the
-# leaves' first-step gradients lie 1.36-2.38e-4 of their largest from a
-# float64 run over seeds 5-8, and 1.86-2.52e-5 with Delta from the plain
-# version's output, the CPU's float32 within 2.06e-5; with one TF32
-# product per product (kernels/variants.py tf32x1) 5.28-7.78e-4. So
-# these leaves are held against float64, between the two (H100 80GB
-# HBM3, 700 W; python -m minimax_speech_torch.kernels.variants
-# --flow-grads)
-K2_GRAD_RTOL = 3e-4
+# phase 22 holds every leaf to TRAIN_GRAD_RTOL, card vs CPU, as phase 9.
+# The UNet's to_q and to_k weights get their gradient only through K2's
+# dq and dk, which take Delta = rowsum(dO * O) from the forward kernel's
+# output; at random weights (near-uniform attention, keys sharing a large
+# mean) that output's error moves them far more than its size. With O
+# summed by the tensor cores over every key tile they lay 1.36-2.38e-4 of
+# their largest from float64 over seeds 5-8 (the CPU's float32 within
+# 2.06e-5); K2's forward now sums each key tile in a zeroed fragment
+# (csrc/attention_mma.cuh, mma_acc), and phase 22 prints both runs'
+# distances to a float64 run beside the check (H100 80GB HBM3, 700 W;
+# python -m minimax_speech_torch.kernels.variants --flow-grads)
+# phases 23-27, the mel output mode: HiFT's weights and voiced f0 from
+# HIFT_SEED (phase 23, and phase 26's pipelines), phase 23's mel of
+# HIFT_FRAMES frames (5 s); card vs CPU, HiFT's decode of one shared
+# source: float32 sums in other orders (TF32 off) on audio within +-0.99,
+# a third of an int16 LSB; the decode's largest waveform change over the
+# largest source change, as tests/test_torch_hift.py holds it
+HIFT_SEED, HIFT_FRAMES = 23, 250
+HIFT_DECODE_TOL = 1e-5
+DECODE_GAIN = 4.0
 # the flow training batch of phases 19-22: utterances of 160-256 tokens,
 # padded to 256 (T = 512 latent frames), ragged reference mels
 FLOW_BATCH, FLOW_TOKENS, FLOW_REF_FRAMES = 8, (160, 256), 224
@@ -449,12 +477,13 @@ def main_path(pipe, inputs, runs: int, card: str, generator_device: str):
     a16, a24, text, ptext = inputs
     cfg = pipe.cfg
     prompt_tokens = pipe.extract_prompt_tokens(a16)
-    prompt_latent = pipe.extract_prompt_latent(a24)
+    prompt_latent = pipe.extract_prompt_feat(a24)
     prompt_mel = pipe.extract_prompt_mel(a24)
     lm_spk, flow_emb = pipe.speaker_embedding(prompt_mel)
     lm_spk = lm_spk.to(next(pipe.lm.parameters()).dtype)
-    log(f"[main] prompt tokens {prompt_tokens.shape}, latent "
-        f"{prompt_latent.shape}, mel {prompt_mel.shape}, lm_spk "
+    log(f"[main] prompt tokens {prompt_tokens.shape}, prompt features "
+        f"({cfg.output_type}) {prompt_latent.shape}, mel "
+        f"{prompt_mel.shape}, lm_spk "
         f"{tuple(lm_spk.shape)} {lm_spk.dtype}, flow_emb "
         f"{tuple(flow_emb.shape)}")
 
@@ -605,12 +634,14 @@ def reduced_pipes(full_cfg, inputs, device="cuda"):
         m.load_state_dict(cpu.models()[name].state_dict())
     lm_spk, flow_emb = cpu.speaker_embedding(cpu.extract_prompt_mel(a24))
     return (cfg, cpu, dev, cpu.extract_prompt_tokens(a16),
-            cpu.extract_prompt_latent(a24), lm_spk, flow_emb)
+            cpu.extract_prompt_feat(a24), lm_spk, flow_emb)
 
 
-def cross_check(pipes, inputs, device="cuda"):
-    """Phase 5: reduced depth, same weights and noise on `device` and on
-    the CPU."""
+def cross_check(pipes, inputs, device="cuda", hift_gaps=None):
+    """Phase 5 (and 26 in mel mode): reduced depth, same weights and
+    noise on `device` and on the CPU. In mel mode the PCM limit is
+    mel_pcm_tol's, from phase 23's `hift_gaps` and the f0 each side's
+    HiFT computed here."""
     import torch
 
     from minimax_speech_torch.infer.pipeline import decode_plan
@@ -620,6 +651,7 @@ def cross_check(pipes, inputs, device="cuda"):
     _, _, text, ptext = inputs
     g_top, g_fb = llm_mod.decode_noise(
         cfg.lm, cfg.max_speech_tokens, 1, torch.Generator().manual_seed(9))
+    f0 = {}
 
     def tokens(pipe, dev):
         src, tok, plen, min_len, max_len = decode_plan(cfg, text, ptext,
@@ -631,26 +663,34 @@ def cross_check(pipes, inputs, device="cuda"):
         return out.cpu().numpy()[0, : int(cnt[0])]
 
     def pcm(pipe, dev):
+        hook = None if pipe.hift is None else \
+            pipe.hift.f0_predictor.register_forward_hook(
+                lambda m, a, out: f0.__setitem__(dev, out.float().cpu()))
         wav = pipe.synthesize_fused(text, ptext, prompt_tokens, prompt_latent,
                                     lm_spk.to(dev), flow_emb.to(dev),
                                     gumbel_top=g_top, gumbel_fallback=g_fb)
+        if hook is not None:
+            hook.remove()
         return np.round(wav * 32767).astype(np.int32)
 
     ids_gpu, ids_cpu = tokens(gpu, device), tokens(cpu, "cpu")
     pcm_gpu, pcm_cpu = pcm(gpu, device), pcm(cpu, "cpu")
+    tol, how = PCM_TOL_LSB, "latent mode"
+    if cfg.output_type == "mel":
+        tol, how = mel_pcm_tol(cpu.hift, hift_gaps, f0[device], f0["cpu"])
     same_ids = ids_gpu.shape == ids_cpu.shape and (ids_gpu == ids_cpu).all()
     diff = int(np.abs(pcm_gpu - pcm_cpu).max()) if \
         pcm_gpu.shape == pcm_cpu.shape else None
     corr = float(np.corrcoef(pcm_gpu, pcm_cpu)[0, 1]) if diff is not None \
         else float("nan")
     log(f"[cross] reduced depth (2 LM layers, 1 mid UNet block, 1+1 "
-        f"encoder blocks), float32, TF32 off: token ids "
-        f"identical {bool(same_ids)} ({len(ids_gpu)} vs {len(ids_cpu)} "
-        f"tokens); PCM max |diff| {diff} LSB (tol {PCM_TOL_LSB}), corr "
+        f"encoder blocks), {cfg.output_type} mode, float32, TF32 off: token "
+        f"ids identical {bool(same_ids)} ({len(ids_gpu)} vs {len(ids_cpu)} "
+        f"tokens); PCM max |diff| {diff} LSB (tol {tol}: {how}), corr "
         f"{corr:.6f}, peak {int(np.abs(pcm_cpu).max())}")
     if not same_ids:
         raise AssertionError("token ids differ between the card and the CPU")
-    if diff is None or diff > PCM_TOL_LSB:
+    if diff is None or diff > tol:
         raise AssertionError(f"PCM differs by {diff} LSB")
 
 
@@ -732,7 +772,7 @@ def _prompt(pipe, inputs):
     lm_spk, flow_emb = pipe.speaker_embedding(pipe.extract_prompt_mel(a24))
     lm_spk = lm_spk.to(next(pipe.lm.parameters()).dtype)
     return (text, ptext, pipe.extract_prompt_tokens(a16),
-            pipe.extract_prompt_latent(a24), lm_spk, flow_emb)
+            pipe.extract_prompt_feat(a24), lm_spk, flow_emb)
 
 
 def stream_main_path(pipe, inputs, card: str, device="cuda"):
@@ -906,9 +946,11 @@ def stream_cross_check(pipes, inputs, device="cuda"):
         raise AssertionError(f"streamed PCM differs: {diff} LSB")
 
 
-def synth_cli_phase(config: str = "configs/default.yaml", device="cuda"):
-    """Phase 13: cli/synthesize.main at full width with the W8A8 LM, once
-    unfused and once streaming, each writing a wav."""
+def synth_cli_phase(config: str = "configs/default.yaml", device="cuda",
+                    streams=(False, True), extra=()):
+    """Phase 13 (and 25 in mel mode, with `extra` overrides):
+    cli/synthesize.main at full width with the W8A8 LM, unfused and
+    streaming as `streams` says, each writing a 24 kHz wav."""
     import tempfile
     import wave
 
@@ -919,21 +961,24 @@ def synth_cli_phase(config: str = "configs/default.yaml", device="cuda"):
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="synth_cli_",
                                      dir=scratch) as root:
-        for stream in (False, True):
+        for stream in streams:
             out = Path(root) / f"out_{int(stream)}.wav"
             argv = ["--random_init", "--config", str(repo / config),
                     "--device", device, "--out", str(out),
                     "--text", "Hello there, this is a test.",
                     "--override", "model.lm.qwen.quantized=true",
-                    "--override", "model.max_speech_tokens=100"]
+                    "--override", "model.max_speech_tokens=100",
+                    *sum((["--override", o] for o in extra), [])]
             t0 = time.perf_counter()
             audio = synth_cli.main(argv + (["--stream"] if stream else []))
             secs = time.perf_counter() - t0
             with wave.open(str(out)) as w:
-                n = w.getnframes()
-            log(f"[synth-cli] {'--stream' if stream else 'unfused'}: wrote "
-                f"{n} samples ({n / 24000:.2f} s) in {secs:.1f} s")
-            if n != len(audio) or n == 0 or not np.isfinite(audio).all():
+                n, rate = w.getnframes(), w.getframerate()
+            log(f"[synth-cli] {'--stream' if stream else 'unfused'} "
+                f"{list(extra)}: wrote {n} samples ({n / 24000:.2f} s) at "
+                f"{rate} Hz in {secs:.1f} s")
+            if n != len(audio) or n == 0 or not np.isfinite(audio).all() \
+                    or rate != 24000:
                 raise AssertionError(f"synthesis CLI wrote {n} samples")
 
 
@@ -977,7 +1022,7 @@ def serve_requests(pipe, specs):
             text_tokens=rng.integers(0, vocab, n_text),
             prompt_text_tokens=rng.integers(0, vocab, PROMPT_TEXT_LEN),
             prompt_speech_tokens=pipe.extract_prompt_tokens(a16),
-            prompt_feat=pipe.extract_prompt_latent(a24),
+            prompt_feat=pipe.extract_prompt_feat(a24),
             lm_spk=lm_spk.float().cpu().numpy()[0],
             flow_emb=flow_emb.float().cpu().numpy()[0]))
     return reqs
@@ -1896,10 +1941,10 @@ def compare_training(runs, device, steps_n, tag, what, symmetric=(),
     whose gradient is 0 by symmetry, so both sides hold rounding only:
     their first-step gradient is held to TRAIN_GRAD_RTOL of the model's
     largest gradient element instead of their own, and their parameters
-    are left out as unpinned. `k2_leaves`: parameter names whose
-    gradient reaches them only through K2's dq and dk: their first-step
-    gradient on `device` is held against `truth`, the first-step
-    gradients of a float64 run on the CPU, at K2_GRAD_RTOL."""
+    are left out as unpinned. `truth`: the first-step gradients of a
+    float64 run on the CPU, against which both runs' distances are
+    printed, those of `k2_leaves` (parameter names whose gradient reaches
+    them only through K2's dq and dk) apart."""
     (m_dev, g_dev, p_dev), (m_cpu, g_cpu, p_cpu) = runs[device], runs["cpu"]
     worst = max(abs(a[k] - c[k]) / max(abs(c[k]), 1e-12)
                 for a, c in zip(m_dev, m_cpu) for k in c)
@@ -1911,8 +1956,6 @@ def compare_training(runs, device, steps_n, tag, what, symmetric=(),
     n_out = n_moved_out = 0
     out_max = 0.0
     for n in p_cpu:
-        held = to_truth[0][n] if n in k2_leaves else grad_err[n]
-        grad_tol = K2_GRAD_RTOL if n in k2_leaves else TRAIN_GRAD_RTOL
         # elements whose gradient the check above does not pin (within its
         # limit of zero): Adam's update there rests on rounding
         pinned = g_cpu[n].abs() >= TRAIN_GRAD_RTOL * float(
@@ -1928,14 +1971,12 @@ def compare_training(runs, device, steps_n, tag, what, symmetric=(),
         leaf_max[n] = float(d.max()) if d.numel() else 0.0
         leaf_share[n] = float((d > TRAIN_PARAM_ATOL).float().mean()) \
             if d.numel() else 0.0
-        if held > grad_tol or leaf_max[n] > max_tol \
+        if grad_err[n] > TRAIN_GRAD_RTOL or leaf_max[n] > max_tol \
                 or leaf_share[n] > TRAIN_PARAM_SHARE:
-            bad.append(f"{n}: grad err {held:.2e} of its largest"
-                       f"{' (against float64)' if n in k2_leaves else ''}, "
+            bad.append(f"{n}: grad err {grad_err[n]:.2e} of its largest, "
                        f"param max {leaf_max[n]:.2e} share "
                        f"{leaf_share[n]:.2e}")
-    others = [n for n in grad_err if n not in k2_leaves]
-    worst_grad = max(others, key=grad_err.get)
+    worst_grad = max(grad_err, key=grad_err.get)
     worst_max = max(leaf_max, key=leaf_max.get)
     worst_share = max(leaf_share, key=leaf_share.get)
     log(f"[{tag}] {what}, {steps_n} steps, TF32 off: loss "
@@ -1962,9 +2003,11 @@ def compare_training(runs, device, steps_n, tag, what, symmetric=(),
         if k2_leaves:
             w = max(k2_leaves, key=to_truth[0].get)
             log(f"[{tag}] the {len(k2_leaves)} leaves reached only through "
-                f"K2's dq/dk, card against float64: worst "
-                f"{to_truth[0][w]:.2e} ({w}; tol {K2_GRAD_RTOL:g}), card "
-                f"against the CPU {max(grad_err[n] for n in k2_leaves):.2e}")
+                f"K2's dq/dk: card against float64 worst "
+                f"{to_truth[0][w]:.2e} ({w}), the CPU's float32 "
+                f"{max(to_truth[1][n] for n in k2_leaves):.2e}; card against "
+                f"the CPU {max(grad_err[n] for n in k2_leaves):.2e} (tol "
+                f"{TRAIN_GRAD_RTOL:g})")
     for line in bad:
         log(f"[{tag}]   FAIL {line}")
     if worst > TRAIN_METRIC_RTOL or bad:
@@ -2103,9 +2146,8 @@ def flow_leaves(names):
 def flow_cross_check(full_flow_cfg, batch, device="cuda", steps_n=3):
     """Phase 22: the flow at reduced depth, the same weights, batch and
     draws on `device` and on the CPU, and a float64 run on the CPU for
-    the first-step gradients: phase 9's checks, except that the UNet's
-    to_q and to_k weights are held against the float64 run at
-    K2_GRAD_RTOL (compare_training)."""
+    the first-step gradients: phase 9's checks on every leaf, with both
+    runs' distances to the float64 run printed (compare_training)."""
     from minimax_speech_torch.train import steps
 
     cfg = reduced_flow(full_flow_cfg)
@@ -2125,6 +2167,487 @@ def flow_cross_check(full_flow_cfg, batch, device="cuda", steps_n=3):
     compare_training(runs, device, steps_n, "cross-flow",
                      "flow, 1 mid UNet stage, 1+1 encoder blocks",
                      symmetric=symmetric, k2_leaves=k2_leaves, truth=truth)
+
+
+def phase_time(n: int, t0: float) -> float:
+    now = time.perf_counter()
+    log(f"[time] phase {n}: {now - t0:.1f} s")
+    return now
+
+
+def voice(hift, seed: int) -> float:
+    """Set HiFT's f0 classifier bias to an f0 drawn from `seed` in
+    [100, 300] Hz, so that most frames are voiced (random weights leave
+    f0 far below the 10 Hz threshold, where the sine source is 0)."""
+    import torch
+
+    f0 = float(np.random.default_rng(seed).uniform(100.0, 300.0))
+    with torch.no_grad():
+        hift.f0_predictor.classifier.bias.fill_(f0)
+    return f0
+
+
+def voiced_share(f0, cfg) -> float:
+    return float((f0 > cfg.nsf_voiced_threshold).float().mean())
+
+
+def phase_tol(n: int, s_max: float) -> float:
+    """Cycles that a float32 cumsum of n phase increments reaching s_max
+    cycles may lie from a float64 one: ceil(log2 n) / 2 ulp(s_max), as a
+    tree-shaped scan rounds each partial sum at most ceil(log2 n) times
+    by at most half an ulp (tests/test_torch_hift.py). The port sums in
+    float64 (hifigan.harmonic_phase) and should lie far inside it."""
+    return math.ceil(math.log2(n)) / 2 * 2.0 ** (
+        math.floor(math.log2(s_max)) - 23)
+
+
+def mel_pcm_tol(hift, gaps, f0_card, f0_cpu):
+    """Phase 26's PCM limit in LSB and its derivation: the latent mode's
+    PCM_TOL_LSB, plus 32767 times HiFT's gap card vs CPU at phase 23 (the
+    decode on one shared source, and DECODE_GAIN times the source's gap,
+    which is the harmonic phases' cumsum), plus DECODE_GAIN times the
+    source change that the two sides' f0 (recorded here) can cause: f0
+    off by df over a frame moves the highest harmonic's phase by
+    (nb_harmonics + 1) df 480 / sr cycles, the merged source by sum|w|
+    alpha 2 pi times that."""
+    c = hift.cfg
+    dec_gap, src_gap = gaps
+    w = float(hift.source_linear.weight.detach().abs().sum())
+    drift = (c.nb_harmonics + 1) * c.total_upsample / c.sampling_rate * \
+        float((f0_card - f0_cpu).abs().sum(-1).max())
+    src = src_gap + w * c.nsf_alpha * 2 * math.pi * drift
+    tol = PCM_TOL_LSB + math.ceil(32767 * (dec_gap + DECODE_GAIN * src))
+    return tol, (f"{PCM_TOL_LSB} + 32767 x (decode gap {dec_gap:.1e} + "
+                 f"{DECODE_GAIN:g} x (source gap {src_gap:.1e} + f0 drift "
+                 f"{drift:.1e} cycles x {w * c.nsf_alpha * 2 * math.pi:.2f}))")
+
+
+def hift_phase(hift_cfg, card: str, device="cuda") -> dict:
+    """Phase 23: HiFT at full width (random weights, seed HIFT_SEED, voiced
+    f0) on a HIFT_FRAMES-frame mel, card vs CPU: each side's harmonic
+    phase against a float64 cumsum of its own f0 (phase_tol); the card's
+    decode of the CPU's source against the CPU's waveform
+    (HIFT_DECODE_TOL); the whole forward within DECODE_GAIN times the
+    sources' gap plus that; the forward's time as CUDA events and audio
+    seconds per second. Returns the weights and the two gaps (phase 26
+    derives its PCM limit from them)."""
+    import torch
+
+    from minimax_speech_torch.models import hifigan
+    from minimax_speech_torch.utils import params_io
+
+    cpu = params_io.init_params(hifigan.HiFTGenerator(hift_cfg),
+                                torch.Generator().manual_seed(HIFT_SEED))
+    f0_hz = voice(cpu.eval(), HIFT_SEED)
+    dev = hifigan.HiFTGenerator(hift_cfg).to(device).eval()
+    dev.load_state_dict(cpu.state_dict())
+    mel = torch.as_tensor(np.random.default_rng(HIFT_SEED).standard_normal(
+        (1, HIFT_FRAMES, hift_cfg.in_channels)), dtype=torch.float32)
+    mel_d = mel.to(device)
+    up, sr = hift_cfg.total_upsample, hift_cfg.sampling_rate
+    n = HIFT_FRAMES * up
+    harmonics = np.arange(1, hift_cfg.nb_harmonics + 2)
+    phase = {}
+    with torch.no_grad():
+        wav_cpu, src_cpu = cpu(mel)
+        f0 = {"cpu": cpu.predict_f0(mel), "card": dev.predict_f0(mel_d)}
+        for side, f in f0.items():
+            f_up = torch.repeat_interleave(f, up, dim=-1)
+            got = hifigan.harmonic_phase(f_up, hift_cfg).double().cpu() \
+                .numpy() / (2 * np.pi)
+            cum = np.cumsum(f_up.double().cpu().numpy()[:, :, None]
+                            * harmonics / sr, axis=1)
+            phase[side] = (float(np.abs((got - cum + 0.5) % 1.0 - 0.5).max()),
+                           phase_tol(n, float(cum.max())))
+        shared = dev.decode(mel_d, src_cpu.to(device)).cpu()
+        wav_dev, src_dev = (x.cpu() for x in dev(mel_d))
+
+    def call():
+        with torch.no_grad():
+            dev(mel_d)
+    if device == "cuda":
+        ms = cuda_ms(call, iters=10)
+    else:  # a rehearsal on the CPU: host time
+        t0 = time.perf_counter()
+        call()
+        ms = (time.perf_counter() - t0) * 1e3
+    share = voiced_share(f0["cpu"], hift_cfg)
+    dec_gap = float((shared - wav_cpu).abs().max())
+    src_gap = float((src_dev - src_cpu).abs().max())
+    fwd_gap = float((wav_dev - wav_cpu).abs().max())
+    fwd_tol = dec_gap + DECODE_GAIN * src_gap + HIFT_DECODE_TOL
+    audio_s = n / sr
+    log(f"[hift] {card} | base {hift_cfg.base_channels}, up "
+        f"{list(hift_cfg.upsample_rates)}, {HIFT_FRAMES} frames ({audio_s:.1f}"
+        f" s), f0 bias {f0_hz:.1f} Hz, voiced share {share:.3f}; harmonic "
+        f"phase against float64, cycles: "
+        f"{ {k: f'{d:.2e} (tol {t:.2e})' for k, (d, t) in phase.items()} }; "
+        f"decode of the CPU's source, card vs CPU: max |diff| {dec_gap:.2e} "
+        f"(tol {HIFT_DECODE_TOL:g}); sources {src_gap:.2e} apart; whole "
+        f"forward {fwd_gap:.2e} (tol {fwd_tol:.2e}); peak "
+        f"{float(wav_dev.abs().max()):.3f}; forward {ms:.2f} ms per call "
+        f"({'CUDA events' if device == 'cuda' else 'host clock'}, B=1), "
+        f"{audio_s / (ms / 1e3):.1f} audio-s per s")
+    ok = (share >= 0.5 and all(d <= t for d, t in phase.values())
+          and dec_gap <= HIFT_DECODE_TOL and fwd_gap <= fwd_tol
+          and bool(torch.isfinite(wav_dev).all())
+          and float(wav_dev.abs().max()) <= hift_cfg.audio_limit)
+    if not ok:
+        raise AssertionError("HiFT on the card differs from the CPU")
+    return {"state": cpu.state_dict(), "gaps": (dec_gap, src_gap),
+            "ms": ms, "audio_s_per_s": audio_s / (ms / 1e3)}
+
+
+def mel_synthesis_phase(pipe, inputs, card: str, device="cuda"):
+    """Phase 24: mel mode at full width with phase 4's LM: synthesize_fused
+    (a warm-up, then a timed call) and the unfused synthesize, each with
+    HiFT's seconds and 560 K1 launches per flow call; a chunked
+    StreamingSession: time to first chunk, seconds per hop with HiFT's
+    full-prefix decode in each, K1's launches per path as phase 11 counts
+    them. Returns K1's launches by path."""
+    import torch
+
+    from minimax_speech_torch.infer.session import StreamingSession
+    from minimax_speech_torch.kernels import flash_attention as fa
+
+    cfg = pipe.cfg
+    args = _prompt(pipe, inputs)
+    expect = attn_calls_per_step(cfg.flow.unet) * cfg.flow.n_timesteps
+    on = device == "cuda"
+    hift_s = []
+
+    def timed(fn):  # the call's seconds, queued work before it excluded
+        def run(*a, **kw):
+            if on:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if on:
+                torch.cuda.synchronize()
+            hift_s.append(round(time.perf_counter() - t0, 4))
+            return out
+        return run
+
+    pipe.decode = timed(pipe.decode)
+    launches = {}
+    try:
+        for label, fn, seed in (("warm-up", pipe.synthesize_fused, 1),
+                                ("fused", pipe.synthesize_fused, 2),
+                                ("unfused", pipe.synthesize, 3)):
+            hift_s.clear()
+            fa.launches = 0
+            gen = torch.Generator(device=device).manual_seed(seed)
+            wav, tim = fn(*args, generator=gen, return_timings=True)
+            launches[label] = fa.launches
+            log(f"[mel] {card} | {label} synthesis, mel mode: tokens "
+                f"{tim['tokens']}, audio_s {tim['audio_s']:.2f}, total_s "
+                f"{tim['total_s']:.4f}, rtf "
+                f"{tim['total_s'] / tim['audio_s']:.5f}, lm_s "
+                f"{tim['lm_s']:.4f}, HiFT {hift_s[0]:.4f} s "
+                f"({hift_s[0] / tim['total_s']:.3f} of total_s); K1 "
+                f"launches {fa.launches}")
+            if tim["tokens"] != GEN_TOKENS or len(wav) != GEN_TOKENS * 960 \
+                    or not np.isfinite(wav).all() or np.abs(wav).max() > 1 \
+                    or (on and fa.launches != expect):
+                raise AssertionError(f"mel-mode {label} synthesis: {tim}, K1 "
+                                     f"{fa.launches} (expected {expect})")
+    finally:
+        del pipe.decode
+    sess = StreamingSession(pipe, chunked=True)
+    sess._hift_prefix = timed(sess._hift_prefix)
+    hift_s.clear()
+    with K1Watch(pipe) as watch:
+        for name in ("prefill", "step", "final"):
+            watch.count(sess.cfs, name, name, device)
+        fa.launches = 0
+        gen = torch.Generator(device=device).manual_seed(4)
+        t0 = time.perf_counter()
+        stamps, chunks = [], []
+        for chunk in sess.synthesize_stream(*args, generator=gen):
+            stamps.append(time.perf_counter() - t0)
+            chunks.append(chunk)
+    total = np.concatenate([c.audio for c in chunks])
+    hops = np.diff([0.0] + stamps).round(4).tolist()
+    counts = watch.per_call
+    log(f"[mel] {card} | chunked StreamingSession, mel mode: time to first "
+        f"chunk {stamps[0]:.4f} s, total {stamps[-1]:.4f} s, {len(chunks)} "
+        f"chunks, audio_s {len(total) / 24000:.2f}, tokens "
+        f"{chunks[-1].tokens}; seconds per hop {hops}, HiFT's full-prefix "
+        f"decode in each {hift_s}; K1 launches {counts}, flow s per call "
+        f"{watch.secs}")
+    want = dict(prefill=[expect], step=[0] * len(counts.get("step", [])),
+                final=[0])
+    ok = (chunks[-1].final and chunks[-1].tokens == GEN_TOKENS
+          and np.isfinite(total).all() and np.abs(total).max() <= 1.1
+          and len(total) == GEN_TOKENS * 960 and len(chunks) >= 3)
+    if not ok or (on and {k: counts.get(k) for k in want} != want):
+        raise AssertionError(f"mel-mode streaming: {len(total)} samples, K1 "
+                             f"{counts} (expected {want})")
+    return {"mel_fused": launches["fused"], "mel_unfused": launches["unfused"],
+            "mel_stream_prefill": counts["prefill"][0],
+            "mel_stream_per_hop_chunked": counts["step"]}
+
+
+def mel_serve_phase(pipe, card: str, device="cuda",
+                    config="configs/default.yaml") -> int:
+    """Phase 25: one BatchSynthesizer call of the first 4 SERVE_SPECS in
+    mel mode at full width, 560 K1 launches; then cli/synthesize.main
+    --override model.output_type=mel, unfused, writing a 24 kHz wav.
+    Returns the call's K1 launches."""
+    import torch
+
+    from minimax_speech_torch.infer.serving import BatchSynthesizer
+    from minimax_speech_torch.kernels import flash_attention as fa
+
+    cfg = pipe.cfg = fixed_length(pipe.cfg, SERVE_TOKENS)
+    reqs = serve_requests(pipe, SERVE_SPECS[:4])
+    expect = attn_calls_per_step(cfg.flow.unet) * cfg.flow.n_timesteps
+    fa.launches = 0
+    wavs, tim = BatchSynthesizer(pipe).synthesize_batch(
+        reqs, generator=torch.Generator(device=device).manual_seed(25),
+        return_timings=True)
+    launches = fa.launches
+    want = [expected_tokens(cfg, r) for r in reqs]
+    log(f"[mel-serve] {card} | BatchSynthesizer, mel mode, B=4: tokens "
+        f"{tim['tokens']} (expected {want}), audio_s {tim['audio_s']:.2f}, "
+        f"total_s {tim['total_s']:.4f} (lm_s {tim['lm_s']:.4f}), audio-s "
+        f"per wall-s {tim['audio_s'] / tim['total_s']:.4f}; K1 launches "
+        f"{launches}")
+    if tim["tokens"] != want or any(len(w) != n * 960 or not np.isfinite(
+            w).all() for w, n in zip(wavs, want)) or (
+            device == "cuda" and launches != expect):
+        raise AssertionError(f"mel-mode batched synthesis: {tim}, K1 "
+                             f"{launches} (expected {expect})")
+    synth_cli_phase(config, device=device, streams=(False,),
+                    extra=("model.output_type=mel",))
+    return launches
+
+
+def upstream_flow_state(cfg, seed: int) -> dict:
+    """A random state dict in the upstream flow.pt layout (CosyVoice2's
+    CausalMaskedDiffWithXvec names, as utils/convert.flow_params reads
+    them) for the flow config `cfg`, one UNet stage: weights N(0, 0.05),
+    norm scales 1 + N(0, 0.05)."""
+    rng = np.random.default_rng(seed)
+
+    def a(*shape):
+        return (0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+    def lin(p, out, inp, bias=True, k=None):
+        w = a(out, inp) if k is None else a(out, inp, k)
+        return {p + "weight": w, **({p + "bias": a(out)} if bias else {})}
+
+    def norm(p, n):
+        return {p + "weight": a(n) + 1.0, p + "bias": a(n)}
+
+    def speaker(p, c):
+        sd = lin(p + "init.", c.model_dim, c.mel_dim, k=1)
+        sd |= lin(p + "output_proj.", c.output_dim, c.model_dim)
+        for i in range(c.num_blocks):
+            b = f"{p}attn.{i}."
+            sd |= norm(b + "norm.", c.model_dim)
+            sd |= lin(b + "qkv.", 3 * c.model_dim, c.model_dim, k=1)
+            sd |= lin(b + "proj_out.", c.model_dim, c.model_dim, k=1)
+        return sd
+
+    def causal_block(p, din, dout):
+        return lin(p + "block.0.", dout, din, k=3) | norm(p + "block.2.", dout)
+
+    e, u = cfg.encoder, cfg.unet
+    d, h = e.output_size, e.attention_heads
+    sd = {"input_embedding.weight": a(cfg.vocab_size, cfg.input_size)}
+    sd |= lin("spk_embed_affine_layer.", cfg.output_size, cfg.spk_embed_dim)
+    sd |= lin("encoder_proj.", cfg.output_size, d)
+    sd |= speaker("speaker_encoder.", cfg.speaker)
+    for name, inp in (("embed", e.input_size), ("up_embed", d)):
+        sd |= lin(f"encoder.{name}.out.0.", d, inp)
+        sd |= norm(f"encoder.{name}.out.1.", d)
+    sd |= lin("encoder.pre_lookahead_layer.conv1.", d, d,
+              k=e.pre_lookahead_len + 1)
+    sd |= lin("encoder.pre_lookahead_layer.conv2.", d, d, k=3)
+    sd |= lin("encoder.up_layer.conv.", d, d, k=2 * e.up_stride + 1)
+    sd |= norm("encoder.after_norm.", d)
+    for group, n in (("encoders", e.num_blocks),
+                     ("up_encoders", e.num_up_blocks)):
+        for i in range(n):
+            p = f"encoder.{group}.{i}."
+            sd |= norm(p + "norm_mha.", d) | norm(p + "norm_ff.", d)
+            for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+                sd |= lin(f"{p}self_attn.{name}.", d, d)
+            sd |= lin(p + "self_attn.linear_pos.", d, d, bias=False)
+            sd[p + "self_attn.pos_bias_u"] = a(h, d // h)
+            sd[p + "self_attn.pos_bias_v"] = a(h, d // h)
+            sd |= lin(p + "feed_forward.w_1.", e.linear_units, d)
+            sd |= lin(p + "feed_forward.w_2.", d, e.linear_units)
+    (ch,) = u.channels
+    temb, inner = 4 * ch, u.num_heads * u.attention_head_dim
+    est = "decoder.estimator."
+    sd |= lin(est + "time_mlp.linear_1.", temb, u.in_channels)
+    sd |= lin(est + "time_mlp.linear_2.", temb, temb)
+    blocks = [("down_blocks.0.", u.in_channels, True)] + [
+        (f"mid_blocks.{i}.", ch, False) for i in range(u.num_mid_blocks)] + [
+        ("up_blocks.0.", 2 * ch, True)]
+    for p, din, conv in blocks:
+        r = est + p + "0."
+        sd |= causal_block(r + "block1.", din, ch)
+        sd |= causal_block(r + "block2.", ch, ch)
+        sd |= lin(r + "mlp.1.", ch, temb) | lin(r + "res_conv.", ch, din, k=1)
+        for j in range(u.n_blocks):
+            t = f"{est}{p}1.{j}."
+            sd |= norm(t + "norm1.", ch) | norm(t + "norm3.", ch)
+            for name in ("to_q", "to_k", "to_v"):
+                sd |= lin(f"{t}attn1.{name}.", inner, ch, bias=False)
+            sd |= lin(t + "attn1.to_out.0.", ch, inner)
+            sd |= lin(t + "ff.net.0.proj.", 4 * ch, ch)
+            sd |= lin(t + "ff.net.2.", ch, 4 * ch)
+        if conv:
+            sd |= lin(est + p + "2.", ch, ch, k=3)
+    sd |= causal_block(est + "final_block.", ch, ch)
+    sd |= lin(est + "final_proj.", u.out_channels, ch, k=1)
+    return sd
+
+
+def upstream_hift_state(c, seed: int) -> dict:
+    """A random state dict in the upstream hift.pt layout (HiFTGenerator
+    names, as utils/convert.hift_params reads them) for HiFTConfig `c`:
+    weight-norm convs as weight_g / weight_v, the transposed ones (in,
+    out, k) under the parametrizations names; the f0 classifier's bias at
+    150 Hz, so that the source is voiced."""
+    rng = np.random.default_rng(seed)
+
+    def a(*shape):
+        return (0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+    def wn(p, out, inp, k):
+        return {p + "weight_g": a(out, 1, 1) + 1.0,
+                p + "weight_v": a(out, inp, k), p + "bias": a(out)}
+
+    def resblock(p, ch, k, n):
+        sd = {}
+        for i in range(n):
+            sd |= wn(f"{p}convs1.{i}.", ch, ch, k)
+            sd |= wn(f"{p}convs2.{i}.", ch, ch, k)
+            sd[f"{p}activations1.{i}.alpha"] = a(1, ch, 1) + 1.0
+            sd[f"{p}activations2.{i}.alpha"] = a(1, ch, 1) + 1.0
+        return sd
+
+    nfft2 = c.istft_n_fft + 2
+    sd = wn("conv_pre.", c.base_channels, c.in_channels, 7)
+    sd |= wn("conv_post.", nfft2,
+             c.base_channels // 2 ** len(c.upsample_rates), 7)
+    sd |= {"m_source.l_linear.weight": a(1, c.nb_harmonics + 1),
+           "m_source.l_linear.bias": a(1)}
+    down = np.cumprod([1] + list(c.upsample_rates[::-1][:-1]))[::-1]
+    n_k = len(c.resblock_kernel_sizes)
+    for i, k in enumerate(c.upsample_kernel_sizes):
+        cin, ch = c.base_channels // 2 ** i, c.base_channels // 2 ** (i + 1)
+        p = f"ups.{i}.parametrizations.weight."
+        sd |= {p + "original0": a(cin, 1, 1) + 1.0,
+               p + "original1": a(cin, ch, k), f"ups.{i}.bias": a(ch)}
+        sd |= {f"source_downs.{i}.weight": a(
+            ch, nfft2, 1 if down[i] == 1 else 2 * int(down[i])),
+            f"source_downs.{i}.bias": a(ch)}
+        sd |= resblock(f"source_resblocks.{i}.", ch,
+                       c.source_resblock_kernel_sizes[i],
+                       len(c.source_resblock_dilations[i]))
+        for j in range(n_k):
+            sd |= resblock(f"resblocks.{i * n_k + j}.", ch,
+                           c.resblock_kernel_sizes[j],
+                           len(c.resblock_dilations[j]))
+    for i in range(5):
+        sd |= wn(f"f0_predictor.condnet.{2 * i}.", c.f0_cond_channels,
+                 c.in_channels if i == 0 else c.f0_cond_channels, 3)
+    sd |= {"f0_predictor.classifier.weight": a(1, c.f0_cond_channels),
+           "f0_predictor.classifier.bias": np.array([150.0], np.float32)}
+    return sd
+
+
+def convert_phase(pipes, inputs, card: str, device="cuda"):
+    """Phase 27: random upstream-layout flow and hift state dicts (phase
+    26's reduced flow, full-width HiFT), saved with torch.save and turned
+    by cli/convert_checkpoint.main into flow.npz and codec.npz in a
+    checkpoint directory beside phase 26's llm.npz and s3.npz. A mel-mode
+    pipeline loaded from that directory, as cli/synthesize.py --ckpt_dir
+    loads one, must hold the weights of one built on the card from the
+    converter's trees in memory bit for bit, and give its token ids and,
+    within PCM_TOL_LSB, its PCM: the same weights, noise and card, but
+    the card's transposed convolutions (cuDNN's backward-data
+    algorithms) do not sum in a fixed order, so two runs of one pipeline
+    differ by a few LSB at these weights' gain (the spread of the direct
+    pipeline's two runs is printed beside)."""
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch.cli import convert_checkpoint as conv_cli
+    from minimax_speech_torch.infer.pipeline import TTSPipeline
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.utils import params_io
+
+    cfg, cpu = pipes[0], pipes[1]
+    states = {"flow": upstream_flow_state(cfg.flow, 27),
+              "hift": upstream_hift_state(cfg.hift, 28)}
+    direct = TTSPipeline.from_flax(
+        cfg, params_io.to_flax_params(cpu.lm),
+        conv_cli.convert("flow", states["flow"], cfg),
+        conv_cli.convert("hift", states["hift"], cfg),
+        params_io.to_flax_params(cpu.s3), device=device)
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="convert_", dir=scratch) as root:
+        root = Path(root)
+        ckpt = root / "ckpt"
+        ckpt.mkdir()
+        cfg_file = root / "config.yaml"  # JSON is YAML
+        cfg_file.write_text(json.dumps({"model": dataclasses.asdict(cfg)}))
+        for kind, out in (("flow", "flow"), ("hift", "codec")):
+            tensors = {k: torch.from_numpy(a) for k, a in
+                       states[kind].items()}
+            torch.save({"state_dict": tensors} if kind == "hift" else
+                       tensors, root / f"{kind}.pt")
+            conv_cli.main(["--kind", kind, "--src", str(root / f"{kind}.pt"),
+                           "--out", str(ckpt / f"{out}.npz"), "--config",
+                           str(cfg_file)])
+        params_io.save_params(str(ckpt / "llm.npz"), cpu.lm)
+        params_io.save_params(str(ckpt / "s3.npz"), cpu.s3)
+        loaded = TTSPipeline.from_flax(
+            cfg, *(params_io.load_params(str(ckpt / f"{n}.npz"))
+                   for n in ("llm", "flow", "codec", "s3")), device=device)
+    secs = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for name, m in direct.models().items()
+               for a, b in zip(m.state_dict().values(),
+                               loaded.models()[name].state_dict().values()))
+    g_top, g_fb = llm_mod.decode_noise(
+        cfg.lm, cfg.max_speech_tokens, 1, torch.Generator().manual_seed(27))
+    out, f0 = {}, []
+    hook = direct.hift.f0_predictor.register_forward_hook(
+        lambda m, a, o: f0.append(o.float().cpu()))
+    for name, pipe in (("direct", direct), ("loaded", loaded),
+                       ("direct again", direct)):
+        wav, tim = pipe.synthesize_fused(
+            *_prompt(pipe, inputs), gumbel_top=g_top, gumbel_fallback=g_fb,
+            return_timings=True)
+        out[name] = (tim["tokens"], np.round(wav * 32767).astype(np.int32))
+    hook.remove()
+
+    def gap(a, b):
+        return int(np.abs(out[a][1] - out[b][1]).max()) if \
+            out[a][1].shape == out[b][1].shape else None
+    diff, spread = gap("direct", "loaded"), gap("direct", "direct again")
+    share = voiced_share(torch.cat([f.flatten() for f in f0]), cfg.hift)
+    log(f"[convert] {card} | upstream flow ({len(states['flow'])} tensors) "
+        f"and hift ({len(states['hift'])}) state dicts through "
+        f"cli/convert_checkpoint into a checkpoint directory and loaded in "
+        f"{secs:.1f} s: weights identical to the converter's in memory "
+        f"{same}; mel-mode synthesize_fused, tokens {out['direct'][0]} vs "
+        f"{out['loaded'][0]}, PCM max |diff| {diff} LSB (tol {PCM_TOL_LSB}; "
+        f"the direct pipeline's two runs {spread} LSB apart), peak "
+        f"{int(np.abs(out['direct'][1]).max())}, voiced share {share:.3f}")
+    if not same or out["direct"][0] != out["loaded"][0] or diff is None \
+            or diff > PCM_TOL_LSB or share < 0.5 or not out["direct"][0]:
+        raise AssertionError("the converted checkpoint differs from the "
+                             "converter's trees")
 
 
 def main() -> int:
@@ -2234,6 +2757,30 @@ def main() -> int:
     k2.update(flow_rec)
     cli_phase(model="flow")
     flow_cross_check(flow_cfg, fbatch)
+
+    # the mel output mode (HiFT): phases 23-27, each timed
+    mel_cfg = dataclasses.replace(cfg, output_type="mel")
+    t0 = time.perf_counter()
+    hift_rec = hift_phase(mel_cfg.hift, card)
+    t0 = phase_time(23, t0)
+    pipe = TTSPipeline.from_random(mel_cfg, seed=0, device="cuda")
+    pipe.lm.to(torch.bfloat16)
+    voice(pipe.hift, HIFT_SEED)
+    record["launches_by_path"].update(mel_synthesis_phase(pipe, inputs,
+                                                          card))
+    t0 = phase_time(24, t0)
+    record["launches_by_path"]["mel_serve_batch"] = mel_serve_phase(pipe,
+                                                                    card)
+    del pipe
+    torch.cuda.empty_cache()
+    t0 = phase_time(25, t0)
+    pipes = reduced_pipes(mel_cfg, inputs)
+    for p in pipes[1:3]:  # phase 23's HiFT, whose gaps set the PCM limit
+        p.hift.load_state_dict(hift_rec["state"])
+    cross_check(pipes, inputs, hift_gaps=hift_rec["gaps"])
+    t0 = phase_time(26, t0)
+    convert_phase(pipes, inputs, card)
+    phase_time(27, t0)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))

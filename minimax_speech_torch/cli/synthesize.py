@@ -7,7 +7,9 @@ Port of minimax_speech_tpu/cli/synthesize.py:
       --prompt_wav prompt24k.wav --out out.wav \
       [--ckpt_dir DIR | --random_init] [--stream] [--device cpu]
 
-ckpt_dir holds {llm,flow,codec,s3}.npz in the JAX package's format.
+ckpt_dir holds {llm,flow,codec,s3}.npz in the JAX package's format
+(codec.npz: the DAC-VAE's, or HiFT's with --override
+model.output_type=mel).
 Runs on CUDA unless --device names another device. Without --prompt_wav
 a 3 s 220 Hz tone is the prompt, without --text "Hello there.".
 """
@@ -91,7 +93,7 @@ def main(argv=None):
 
     prompt_tokens = pipe.extract_prompt_tokens(audio16)
     prompt_mel = pipe.extract_prompt_mel(audio24)
-    prompt_feat = pipe.extract_prompt_latent(audio24)
+    prompt_feat = pipe.extract_prompt_feat(audio24)
     lm_spk, flow_emb = pipe.speaker_embedding(prompt_mel)
     ptext_tokens = fe.extract_text_tokens(args.prompt_text) \
         if args.prompt_text else np.zeros((0,), np.int32)

@@ -203,14 +203,34 @@ __device__ __forceinline__ void mma_rows(float (&acc)[8][4], const T* a,
   }
 }
 
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+}
+
 // acc[n] += P B[:, 8n .. 8n+7], P (16 x 64) an fp32 accumulator in C
 // layout, B the 64 rows of tile `b` (O += P V, dV += P^T dO,
-// dK += dS^T Q, dQ += dS K)
-template <typename T>
+// dK += dS^T Q, dQ += dS K).
+// The tensor cores add each product into the accumulator they are given
+// with a long fp32 sum of their own, which rounds worse than an FADD:
+// chained over every key tile of a row, it put the forward's O 7.4e-6
+// from the plain version at the LM shape, and through Delta = rowsum(dO
+// O) moved the flow UNet's to_q/to_k gradients 1.4-2.4e-4 of their
+// largest from float64 (the CPU's float32: 2e-5). With kTileSum the 8
+// k-steps of the tile are summed in a zeroed fragment, which is then
+// added to acc by FADDs, so no tensor-core sum spans more than one key
+// tile. K2's forward O takes it; the backward's products, whose sums
+// span fewer tiles, and K1 keep the chained form.
+template <bool kTileSum = false, typename T>
 __device__ __forceinline__ void mma_acc(float (&acc)[8][4],
                                         const float (&p)[8][4], const T* b,
                                         int g, int t) {
   constexpr int S = Tile<T>::kStride;
+  float part[8][4];
+  if (kTileSum) zero(part);
+  float(&d)[8][4] = kTileSum ? part : acc;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     uint32_t ah[4], al[4];
@@ -224,16 +244,15 @@ __device__ __forceinline__ void mma_acc(float (&acc)[8][4],
       uint32_t bh[2], bl[2];
       split<Tile<T>::kFloat>(to_f(r0[8 * n]), bh[0], bl[0]);
       split<Tile<T>::kFloat>(to_f(r0[S + 8 * n]), bh[1], bl[1]);
-      mma3<true, Tile<T>::kFloat>(acc[n], ah, al, bh, bl);
+      mma3<true, Tile<T>::kFloat>(d[n], ah, al, bh, bl);
     }
   }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+  if (kTileSum) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
 }
 
 // the column of accumulator element (n, e) is col0 + 8n + 2t + (e & 1); its
@@ -300,9 +319,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], int k0,
 // kSplit groups of 4 warps: warp w of a group owns rows q0 + 16 (w % 4)
 // and group j takes key tiles j, j + kSplit, ... of the range the tile's
 // rows reach, each group with its own double-buffered K and V; the
-// groups' (m, l, O) are combined at the end.
+// groups' (m, l, O) are combined at the end. kTileSum: O += P V as
+// mma_acc<true> sums it, one zeroed fragment per key tile.
 // The shared memory holds forward_tiles(kSplit) tiles.
-template <typename T, int kSplit, typename Mask>
+template <typename T, int kSplit, bool kTileSum, typename Mask>
 __device__ __forceinline__ void attention_forward(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
@@ -361,7 +381,7 @@ __device__ __forceinline__ void attention_forward(
       zero(s);
       mma_rows(s, qw, ks, g, t);
       online_softmax(s, k0, lo, hi, scale, m, l, o, t);
-      mma_acc(o, s, ks + E, g, t);
+      mma_acc<kTileSum>(o, s, ks + E, g, t);
     }
     cp_async_wait_all();
     group_sync(group);

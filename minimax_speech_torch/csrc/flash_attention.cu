@@ -81,9 +81,9 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = static_cast<size_t>(bh) * seq * kD;
   const K1Mask mask{max(0, min(kv_len[bh / heads], seq)), chunk, left_chunks,
                     causal};
-  attn::attention_forward<T, kSplit>(q + base, k + base, v + base, out + base,
-                                     nullptr, mask, seq, blockIdx.x * kTile,
-                                     scale, reinterpret_cast<T*>(smem));
+  attn::attention_forward<T, kSplit, false>(
+      q + base, k + base, v + base, out + base, nullptr, mask, seq,
+      blockIdx.x * kTile, scale, reinterpret_cast<T*>(smem));
 }
 
 template <typename T>

@@ -176,10 +176,10 @@ splash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const size_t base = static_cast<size_t>(bh) * seq * kD;
   const Mask m = make_mask(kv_len, bh / heads, seq, chunk, left);
-  attn::attention_forward<T, 1>(q + base, k + base, v + base, out + base,
-                                lse + static_cast<size_t>(bh) * seq, m, seq,
-                                blockIdx.x * kTile, 1.0f,
-                                reinterpret_cast<T*>(smem));
+  attn::attention_forward<T, 1, true>(
+      q + base, k + base, v + base, out + base,
+      lse + static_cast<size_t>(bh) * seq, m, seq, blockIdx.x * kTile, 1.0f,
+      reinterpret_cast<T*>(smem));
 }
 
 template <typename T>

@@ -1,6 +1,6 @@
 """The top-level TTS API, CosyVoice2's surface.
 
-Port of minimax_speech_tpu/infer/api.py, latent (DAC-VAE) mode:
+Port of minimax_speech_tpu/infer/api.py, both output modes:
   * inference_zero_shot(tts_text, prompt_text, prompt_speech_16k)
   * inference_cross_lingual(tts_text, prompt_speech_16k)
   * inference_instruct2(tts_text, instruct_text, prompt_speech_16k)
@@ -104,14 +104,15 @@ class TTS:
     # -- prompt features -------------------------------------------------------
     def _prompt_features(self, prompt_speech_16k: np.ndarray,
                          prompt_text: str = "") -> dict:
-        """Host numpy arrays: prompt tokens, prompt latents, the LM's (1, C)
-        and the flow's (1, 192) speaker conditioning, prompt text tokens."""
+        """Host numpy arrays: prompt tokens, the flow's prompt features
+        (latents, or the mel in mel mode), the LM's (1, C) and the flow's
+        (1, 192) speaker conditioning, prompt text tokens."""
         p = self.pipeline
         audio24 = _resample(prompt_speech_16k, 16000, 24000)
         lm_spk, flow_emb = p.speaker_embedding(p.extract_prompt_mel(audio24))
         return {"prompt_tokens": p.extract_prompt_tokens(
                     prompt_speech_16k.astype(np.float32)),
-                "prompt_feat": p.extract_prompt_latent(audio24),
+                "prompt_feat": p.extract_prompt_feat(audio24),
                 "lm_spk": lm_spk.float().cpu().numpy(),
                 "flow_emb": flow_emb.float().cpu().numpy(),
                 "prompt_text_tokens": (
@@ -221,7 +222,7 @@ class TTS:
                               self._conditioning(info)[1], p.noise,
                               device=p.device)
         n_frames = len(source_tokens) * self.cfg.token_latent_ratio
-        wav = p.dac.decode(feat[:, :n_frames].float()).reshape(-1)
+        wav = p.decode(feat[:, :n_frames]).reshape(-1)
         wav = _speed_change(wav.cpu().numpy(), speed)
         dur = len(wav) / self.sample_rate
         logging.info("yield speech len %.2f, rtf %.4f", dur,

@@ -1,6 +1,6 @@
 """Continuous batching: requests join and leave the running decode.
 
-Port of minimax_speech_tpu/infer/continuous.py, latent (DAC-VAE) mode. A
+Port of minimax_speech_tpu/infer/continuous.py, both output modes. A
 fixed pool of decode lanes (slots) shares one preallocated KV cache of
 slots x (prompt_buckets[-1] + max_speech_tokens + HEADROOM) positions.
 Admission prefills a request alone at its prompt bucket and writes the

@@ -1,14 +1,18 @@
 """Zero-shot TTS pipeline: text + prompt audio -> 24 kHz int16 PCM.
 
-Port of minimax_speech_tpu/infer/pipeline.py, latent output mode
-(DAC-VAE vocoder):
+Port of minimax_speech_tpu/infer/pipeline.py, in both output modes:
+`output_type` latent (the flow makes DAC-VAE latents, the DAC-VAE
+decoder makes audio) or mel (the flow makes an 80-bin mel at 50 Hz, the
+HiFT vocoder makes audio, as the upstream CosyVoice2 layout runs):
 
   1. prompt audio 16 kHz -> whisper log-mel -> S3 FSQ tokens
-  2. prompt audio 24 kHz -> DAC-VAE latents (flow prompt) and a host
-     log-mel (speaker-encoder conditioning)
+  2. prompt audio 24 kHz -> a host log-mel (speaker-encoder conditioning,
+     and the flow's prompt in mel mode) and, in latent mode, DAC-VAE
+     latents (the flow's prompt)
   3. SpeechLM RAS decode: text (+ prompt text) tokens -> FSQ tokens
-  4. FlowModel: [prompt | generated] tokens -> latents (10-step CFG Euler)
-  5. DAC-VAE decode -> trimmed int16 PCM, cut on the device
+  4. FlowModel: [prompt | generated] tokens -> latents or mel (10-step
+     CFG Euler)
+  5. the vocoder (`decode`) -> trimmed int16 PCM, cut on the device
 
 Everything runs on one device, CUDA unless the caller passes
 device="cpu". `synthesize_fused` copies to the host once, at the end; it
@@ -37,7 +41,8 @@ from minimax_speech_torch.ops import mel as mel_ops
 from minimax_speech_torch.utils import params_io
 from minimax_speech_torch.utils.device import resolve_device
 
-SAMPLES_PER_FRAME = 480  # 24 kHz samples per 50 Hz latent frame
+# 24 kHz samples per 50 Hz flow frame: the DAC-VAE's hop, HiFT's upsampling
+SAMPLES_PER_FRAME = 480
 
 
 def next_bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024)) -> int:
@@ -54,7 +59,7 @@ class TTSConfig:
     dac: dac_vae.DACVAEConfig = field(default_factory=dac_vae.DACVAEConfig)
     hift: hifigan.HiFTConfig = field(default_factory=hifigan.HiFTConfig)
     s3: s3.S3TokenizerConfig = field(default_factory=s3.S3TokenizerConfig)
-    output_type: str = "latent"       # only 'latent' (DAC) is ported
+    output_type: str = "latent"       # 'latent' (DAC) | 'mel' (HiFT)
     token_frame_rate: int = 25
     token_latent_ratio: int = 2
     sample_rate: int = 24000
@@ -83,25 +88,46 @@ def decode_plan(cfg: TTSConfig, text_tokens, prompt_text_tokens,
 
 class TTSPipeline:
     """The four models on one device, in eval mode, with the fixed flow
-    noise table."""
+    noise table. The codec is the DAC-VAE (`dac`) in latent mode and the
+    HiFT vocoder (`hift`) in mel mode; the other one is None."""
 
     def __init__(self, cfg: TTSConfig, device=None):
-        if cfg.output_type != "latent":
-            raise NotImplementedError(
-                f"output_type={cfg.output_type!r}: only 'latent' is ported")
+        if cfg.output_type not in ("latent", "mel"):
+            raise ValueError(f"output_type={cfg.output_type!r}: 'latent' or "
+                             f"'mel'")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dac = self.hift = None
         with torch.device(self.device):
             self.lm = llm_mod.SpeechLM(cfg.lm).eval()
             self.flow = FlowModel(cfg.flow).eval()
-            self.dac = dac_vae.DACVAE(cfg.dac).eval()
+            if cfg.output_type == "latent":
+                self.dac = dac_vae.DACVAE(cfg.dac).eval()
+            else:
+                self.hift = hifigan.HiFTGenerator(cfg.hift).eval()
             self.s3 = s3.S3TokenizerV2(cfg.s3).eval()
         self.noise = torch.as_tensor(cfm_mod.make_fixed_noise(
             15000, cfg.flow.output_size)[None], device=self.device)
 
     def models(self):
-        return {"lm": self.lm, "flow": self.flow, "codec": self.dac,
+        return {"lm": self.lm, "flow": self.flow,
+                "codec": self.dac if self.hift is None else self.hift,
                 "s3": self.s3}
+
+    def decode(self, feat: torch.Tensor) -> torch.Tensor:
+        """Flow output (B, T, 80) on the device -> float32 waveform (B, T *
+        480): DAC-VAE decode of latents, or HiFT of a mel (its sine source
+        without noise, as the JAX package's key=None)."""
+        if self.hift is not None:
+            return self.hift(feat.float())[0]
+        return self.dac.decode(feat.float()).reshape(feat.shape[0], -1)
+
+    def extract_prompt_feat(self, audio_24k: np.ndarray) -> np.ndarray:
+        """The flow's prompt features for `output_type`: DAC latents, or
+        the log-mel."""
+        if self.cfg.output_type == "latent":
+            return self.extract_prompt_latent(audio_24k)
+        return self.extract_prompt_mel(audio_24k)
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -118,7 +144,8 @@ class TTSPipeline:
     def from_flax(cls, cfg: TTSConfig, lm_vars, flow_vars, codec_vars,
                   s3_vars, device=None) -> "TTSPipeline":
         """Weights from the JAX package's variable trees (numpy leaves, as
-        from its params_io.load_params)."""
+        from its params_io.load_params); codec_vars are the DAC-VAE's in
+        latent mode and HiFT's in mel mode."""
         pipe = cls(cfg, device)
         for m, tree in zip(pipe.models().values(),
                            (lm_vars, flow_vars, codec_vars, s3_vars)):
@@ -167,9 +194,9 @@ class TTSPipeline:
                    return_timings: bool = False):
         """One utterance, unfused: the LM decode, the generated tokens to
         the host, then flow (`flow_inference` on [prompt | generated]
-        padded to a bucket) and DAC decode, the waveform trimmed on the
-        host. prompt_feat: (Tp, 80) latents. Noise as synthesize_fused.
-        Returns float32 audio."""
+        padded to a bucket) and the vocoder, the waveform trimmed on the
+        host. prompt_feat: (Tp, 80) latents or mel, as output_type. Noise
+        as synthesize_fused. Returns float32 audio."""
         cfg = self.cfg
         t0 = time.perf_counter()
         src, tok, plen, min_len, max_len = decode_plan(
@@ -190,7 +217,7 @@ class TTSPipeline:
         feat = flow_inference(
             self.flow, tokens, [tl], np.asarray(prompt_feat, np.float32)[None],
             flow_emb, self.noise, device=self.device)
-        wav = self.dac.decode(feat.float()).reshape(-1)
+        wav = self.decode(feat).reshape(-1)
         wav = wav[: n * cfg.token_latent_ratio * SAMPLES_PER_FRAME]
         wav = wav.cpu().numpy()
         t2 = time.perf_counter()
@@ -208,11 +235,12 @@ class TTSPipeline:
                          generator: torch.Generator | None = None,
                          gumbel_top=None, gumbel_fallback=None,
                          return_timings: bool = False):
-        """One utterance: LM decode -> flow -> DAC decode -> trim -> int16,
+        """One utterance: LM decode -> flow -> vocoder -> trim -> int16,
         on the device, one copy to the host at the end: `fused_batch` at
-        B = 1. prompt_feat: (Tp, 80) latents. The decode noise is
-        `gumbel_top` / `gumbel_fallback` (see llm.generate), else drawn
-        from `generator`. Returns float32 audio (PCM / 32767)."""
+        B = 1. prompt_feat: (Tp, 80) latents or mel, as output_type. The
+        decode noise is `gumbel_top` / `gumbel_fallback` (see
+        llm.generate), else drawn from `generator`. Returns float32 audio
+        (PCM / 32767)."""
         cfg = self.cfg
         t0 = time.perf_counter()
         n_prompt = len(prompt_speech_tokens)
@@ -250,12 +278,13 @@ class TTSPipeline:
         lengths plen and bounds min_len/max_len (B,); each row's [prompt |
         generated] tokens compacted by a gather (prompt_tokens (B, Pt),
         true lengths prompt_tok_len); one flow_inference_batched call with
-        the ragged prompt latents prompt_feat (B, Tp, 80) / prompt_feat_len
-        and flow_emb (B, 192); DAC decode; row i trimmed from its own
-        prompt_feat_len[i] frames (the start clamped as dynamic_slice
-        clamps it) to int16. Noise as llm.generate, for B rows. Returns
-        (PCM (B, S) int16, token counts (B,), both numpy; the LM's host
-        seconds): row i's audio is its first counts[i] * 960 samples."""
+        the ragged prompt features prompt_feat (B, Tp, 80) /
+        prompt_feat_len and flow_emb (B, 192); the vocoder; row i trimmed
+        from its own prompt_feat_len[i] frames (the start clamped as
+        dynamic_slice clamps it) to int16. Noise as llm.generate, for B
+        rows. Returns (PCM (B, S) int16, token counts (B,), both numpy; the
+        LM's host seconds): row i's audio is its first counts[i] * 960
+        samples."""
         cfg = self.cfg
         dev = self.device
         t0 = time.perf_counter()
@@ -283,7 +312,7 @@ class TTSPipeline:
         feat = flow_inference_batched(
             self.flow, compact, ptl + count, prompt_feat, pfl,
             torch.as_tensor(flow_emb, device=dev), self.noise, device=dev)
-        wav = self.dac.decode(feat.float()).reshape(b, -1)
+        wav = self.decode(feat).reshape(b, -1)
         spf = SAMPLES_PER_FRAME
         gen_samples = min(cfg.max_speech_tokens * cfg.token_latent_ratio
                           * spf, wav.shape[1])

@@ -74,7 +74,7 @@ def batch_plans(cfg, requests: Sequence[Request]):
 
 def padded_prompt_feats(requests: Sequence[Request], n_feat: int,
                         buckets=(16, 32, 64, 128, 256)):
-    """The prompt latents padded to one bucket (B, Tp, n_feat) and their
+    """The prompt features padded to one bucket (B, Tp, n_feat) and their
     true lengths (B,), as numpy."""
     pf = np.zeros((len(requests), next_bucket(
         max(r.prompt_feat.shape[0] for r in requests), buckets=buckets),

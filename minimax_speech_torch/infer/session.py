@@ -1,6 +1,6 @@
 """Streaming TTS session: 25-token hop, 3-token lookahead, chunk fades.
 
-Port of minimax_speech_tpu/infer/session.py, latent (DAC-VAE) mode. An
+Port of minimax_speech_tpu/infer/session.py, both output modes. An
 LM token producer feeds a flow + vocoder consumer that emits audio every
 `token_hop` tokens, using the flow encoder's pre-lookahead context for
 non-final chunks and crossfading chunk boundaries. The producer,
@@ -163,20 +163,20 @@ class StreamChunk:
 
 
 class StreamingSession:
-    """Audio chunks every token_hop tokens from one pipeline, latent mode.
+    """Audio chunks every token_hop tokens from one pipeline.
 
     chunked (default): the flow runs hop by hop against persistent caches
     (infer/stream_flow.py). chunked=False: each hop reruns the flow over
     the prompt and every token so far, with chunk masks (the UNet's
     through K1's chunk mode) and the lookahead tokens held back as
-    encoder context. One stream at a time per session."""
+    encoder context. In latent mode each hop decodes its new frames; in mel
+    mode HiFT decodes the whole mel so far each hop, the source of the
+    previous hop spliced in (its cache, dropped on the final hop), so the
+    harmonics' phases run on across hops, as the JAX package does. One
+    stream at a time per session."""
 
     def __init__(self, pipeline, token_hop: int = 25, lookahead: int = 3,
                  overlap_frames: int = 8, chunked: bool = True):
-        if pipeline.cfg.output_type != "latent":
-            raise NotImplementedError(
-                "streaming in mel mode needs HiFT, which is not ported yet "
-                "(ROADMAP.md, queue 1, item 9)")
         self.p = pipeline
         self.token_hop = token_hop
         self.lookahead = lookahead
@@ -211,6 +211,7 @@ class StreamingSession:
         min_len = int(n_text * cfg.min_token_text_ratio)
         max_len = min(int(n_text * cfg.max_token_text_ratio),
                       cfg.max_speech_tokens)
+        self._src_cache = None        # HiFT's source so far (mel mode)
         self._feat_buf = np.zeros((0, cfg.flow.output_size), np.float32)
         self._consumed = 0            # tokens already flowed (chunked mode)
         self._prefilled = False
@@ -247,7 +248,11 @@ class StreamingSession:
                     break
                 pending -= self.token_hop
                 continue
-            wav = self._decode_pcm(chunk)
+            if self.p.hift is not None:
+                wav = self._hift_prefix(feat, finalize)[
+                    emitted_frames * SAMPLES_PER_FRAME:]
+            else:
+                wav = self._decode_pcm(chunk)
             if prev_tail is not None and len(wav) >= self.overlap_samples:
                 wav = fade_in_out(wav, prev_tail, self.window)
             if not finalize:
@@ -264,9 +269,20 @@ class StreamingSession:
     def _decode_pcm(self, feat: np.ndarray) -> np.ndarray:
         """(T, 80) latents -> float32 audio at int16 precision."""
         z = torch.as_tensor(feat, device=self.p.device)[None]
-        wav = self.p.dac.decode(z.float())
+        wav = self.p.decode(z)
         pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
         return pcm.reshape(-1).cpu().numpy().astype(np.float32) / 32767.0
+
+    def _hift_prefix(self, feat: np.ndarray, finalize: bool) -> np.ndarray:
+        """The whole mel so far (T, 80) -> float32 audio (T * 480,) by
+        HiFT with the source cache spliced in; keeps the new source as the
+        cache, or drops it on the final hop."""
+        if self._src_cache is None:
+            self._src_cache = torch.zeros((1, 0, 1), device=self.p.device)
+        wav, src = self.p.hift(torch.as_tensor(feat, device=self.p.device)
+                               [None].float(), cache_source=self._src_cache)
+        self._src_cache = None if finalize else src
+        return wav.reshape(-1).cpu().numpy()
 
     def _flow_chunk_cached(self, tokens: list, prompt_tokens, prompt_feat,
                            flow_emb, finalize: bool) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Batched streaming serving: N streaming sessions in lockstep.
 
-Port of minimax_speech_tpu/infer/stream_batch.py, latent (DAC-VAE) mode:
+Port of minimax_speech_tpu/infer/stream_batch.py, both output modes:
 the streaming session's hop contract (infer/session.py: `token_hop`
 tokens per chunk, `lookahead` tokens of encoder context, crossfaded
 boundaries) with batched decoding (infer/serving.py): one batched
@@ -58,10 +58,6 @@ class HopCutter:
 
     def __init__(self, pipeline, token_hop: int = 25, lookahead: int = 3,
                  overlap_frames: int = 8):
-        if pipeline.cfg.output_type != "latent":
-            raise NotImplementedError(
-                "streaming in mel mode needs HiFT, which is not ported yet "
-                "(ROADMAP.md, queue 1, item 9)")
         if token_hop + lookahead > self.HEADROOM:
             raise ValueError(f"token_hop + lookahead = {token_hop + lookahead}"
                              f" exceeds HEADROOM={self.HEADROOM}")
@@ -76,9 +72,10 @@ class HopCutter:
     def flow_audio(self, seqs, pf, pfl, femb) -> np.ndarray:
         """One streaming flow call (chunk masks, K1's chunk mode) over the
         token sequences `seqs` ([prompt | generated] per stream) padded to
-        a bucket, then the codec; prompt latents pf (B, Tp, 80) with true
-        lengths pfl, speaker embeddings femb (B, 192). Returns every
-        stream's whole waveform (B, S), float32, on the host."""
+        a bucket, then the pipeline's vocoder; prompt features pf (B, Tp,
+        80) with true lengths pfl, speaker embeddings femb (B, 192).
+        Returns every stream's whole waveform (B, S), float32, on the
+        host."""
         tok = np.zeros((len(seqs), next_bucket(max(len(q) for q in seqs))),
                        np.int64)
         for j, q in enumerate(seqs):
@@ -86,8 +83,7 @@ class HopCutter:
         feat = flow_inference_batched(
             self.p.flow, tok, [len(q) for q in seqs], pf, pfl, femb,
             self.p.noise, streaming=True, device=self.p.device)
-        wav = self.p.dac.decode(feat.float())
-        return wav.reshape(len(seqs), -1).cpu().numpy()
+        return self.p.decode(feat).cpu().numpy()
 
     def cut(self, s: StreamState, wav: np.ndarray,
             prompt_frames: int) -> Optional[np.ndarray]:

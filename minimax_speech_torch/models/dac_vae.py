@@ -1,6 +1,7 @@
 """DAC-VAE continuous audio codec: encoder (mu) and decoder.
 
-Port of minimax_speech_tpu/models/dac_vae.py, inference. Snake
+Port of minimax_speech_tpu/models/dac_vae.py, inference and the
+converter of an upstream state dict. Snake
 activations and weight-normalized convs, with the weight norm kept as
 explicit (g, v) parameters in the JAX layout: the kernel is
 g / sqrt(sum(v^2) + 1e-12) * v. Strided and transposed convs are plain
@@ -243,3 +244,55 @@ def pad_to_hop(audio: np.ndarray, hop: int) -> np.ndarray:
     if pad:
         audio = np.pad(audio, [(0, 0)] * (audio.ndim - 1) + [(0, pad)])
     return audio
+
+
+def params_from_torch_state(state: dict, cfg: DACVAEConfig) -> dict:
+    """An upstream DACVAE state dict (numpy arrays) with weight-norm
+    parameters (*.weight_g / *.weight_v, or
+    parametrizations.weight.original0/1) -> the flax variables {"params":
+    ...} that params_io loads, as the JAX package's params_from_torch_state
+    maps them: v (out, in, k) or, transposed, (in, out, k) becomes (k, in,
+    out) or (k, out, in), g flat, Snake alpha (1, C, 1) becomes (1, 1, C)."""
+    def norm_key(k):
+        return (k.replace("parametrizations.weight.original0", "weight_g")
+                 .replace("parametrizations.weight.original1", "weight_v"))
+
+    state = {norm_key(k): v for k, v in state.items()}
+
+    def conv(prefix):
+        return {"g": state[prefix + ".weight_g"].reshape(-1),
+                "v": np.transpose(state[prefix + ".weight_v"], (2, 1, 0)),
+                "bias": state[prefix + ".bias"]}
+
+    def snake(prefix):
+        return {"alpha": np.transpose(state[prefix + ".alpha"], (0, 2, 1))}
+
+    def res_units(tp, first, blk):
+        # block.{first + j}: Sequential(snake, conv7, snake, conv1)
+        for j in range(3):
+            u = f"{tp}.block.{first + j}"
+            blk[f"res{j + 1}"] = {
+                "snake1": snake(f"{u}.block.0"), "conv1": conv(f"{u}.block.1"),
+                "snake2": snake(f"{u}.block.2"), "conv2": conv(f"{u}.block.3")}
+        return blk
+
+    enc: dict = {"conv_in": conv("encoder.block.0")}
+    for i in range(len(cfg.encoder_rates)):
+        tp = f"encoder.block.{i + 1}"
+        enc[f"block_{i}"] = res_units(tp, 0, {
+            "snake": snake(f"{tp}.block.3"), "down": conv(f"{tp}.block.4")})
+    n = len(cfg.encoder_rates) + 1
+    enc["snake_out"] = snake(f"encoder.block.{n}")
+    enc["conv_out"] = conv(f"encoder.block.{n + 1}")
+
+    dec: dict = {"conv_in": conv("decoder.model.0")}
+    for i in range(len(cfg.decoder_rates)):
+        tp = f"decoder.model.{i + 1}"
+        dec[f"block_{i}"] = res_units(tp, 2, {
+            "snake": snake(f"{tp}.block.0"), "up": conv(f"{tp}.block.1")})
+    n = len(cfg.decoder_rates) + 1
+    dec["snake_out"] = snake(f"decoder.model.{n}")
+    dec["conv_out"] = conv(f"decoder.model.{n + 1}")
+    return {"params": {"encoder": enc, "decoder": dec,
+                       "en_conv_post": conv("en_conv_post"),
+                       "de_conv_pre": conv("de_conv_pre")}}

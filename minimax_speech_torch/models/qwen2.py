@@ -318,3 +318,41 @@ def causal_bias(pad_mask: torch.Tensor) -> torch.Tensor:
 def cache_bias(valid: torch.Tensor) -> torch.Tensor:
     """(B, K) cache-slot validity -> (B, 1, 1, K) additive bias."""
     return torch.where(valid, 0.0, -1e10)[:, None, None, :].float()
+
+
+def params_from_hf_state(state: dict, cfg: Qwen2Config):
+    """An HF Qwen2ForCausalLM state dict (numpy arrays, keys with or
+    without the "model." prefix) -> (the Qwen2 body's flax variables
+    {"params": ...}, the embedding table, the lm_head weight or None),
+    the trees the JAX package's params_from_hf_state gives."""
+    def dw(w):
+        return np.transpose(w, (1, 0))
+
+    def get(k):
+        return state.get("model." + k, state.get(k))
+
+    p: dict = {}
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        p[f"layers_{i}"] = {
+            "input_layernorm": {"weight": get(pre + "input_layernorm.weight")},
+            "post_attention_layernorm": {
+                "weight": get(pre + "post_attention_layernorm.weight")},
+            "self_attn": {
+                "q_proj": {"kernel": dw(get(pre + "self_attn.q_proj.weight")),
+                           "bias": get(pre + "self_attn.q_proj.bias")},
+                "k_proj": {"kernel": dw(get(pre + "self_attn.k_proj.weight")),
+                           "bias": get(pre + "self_attn.k_proj.bias")},
+                "v_proj": {"kernel": dw(get(pre + "self_attn.v_proj.weight")),
+                           "bias": get(pre + "self_attn.v_proj.bias")},
+                "o_proj": {"kernel": dw(get(pre + "self_attn.o_proj.weight"))},
+            },
+            "mlp": {
+                "gate_proj": {"kernel": dw(get(pre + "mlp.gate_proj.weight"))},
+                "up_proj": {"kernel": dw(get(pre + "mlp.up_proj.weight"))},
+                "down_proj": {"kernel": dw(get(pre + "mlp.down_proj.weight"))},
+            },
+        }
+    p["norm"] = {"weight": get("norm.weight")}
+    return {"params": p}, get("embed_tokens.weight"), state.get(
+        "lm_head.weight")

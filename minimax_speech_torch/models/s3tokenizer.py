@@ -4,13 +4,15 @@ quantizer, one window of up to 30 s.
 Port of S3TokenizerV2 of minimax_speech_tpu/models/s3tokenizer.py:
 log-mel (B, T, 128) at 100 Hz -> two stride-2 convs (-> 25 Hz) ->
 residual attention blocks with RoPE and an FSMN memory conv on the
-value path -> Dense to 8 -> FSQ codes in [0, 6561). Long-audio windowing
-(quantize_long) and V1 are not ported yet.
+value path -> Dense to 8 -> FSQ codes in [0, 6561); and the converter of
+an upstream state dict. Long-audio windowing (quantize_long) and V1 are
+not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -133,3 +135,51 @@ class S3TokenizerV2(nn.Module):
         int32, code lengths (B,))."""
         hidden, code_len = self.encoder(mel, mel_len)
         return fsq_ops.fsq_encode(self.project_down(hidden)), code_len
+
+
+def params_from_torch_state(state: dict) -> dict:
+    """An upstream S3TokenizerV2 state dict (numpy arrays: encoder.conv1,
+    encoder.blocks.{i}.attn.query ..., quantizer._codebook.project_down)
+    -> the flax variables {"params": ...} that params_io loads, as the
+    JAX package's params_from_torch_state maps them. Conv1d weights
+    (out, in, k) become (k, in, out), Linear (out, in) becomes (in, out)."""
+    def conv_w(w):
+        return np.transpose(w, (2, 1, 0))
+
+    def dense_w(w):
+        return np.transpose(w, (1, 0))
+
+    enc: dict = {
+        "conv1": {"kernel": conv_w(state["encoder.conv1.weight"]),
+                  "bias": state["encoder.conv1.bias"]},
+        "conv2": {"kernel": conv_w(state["encoder.conv2.weight"]),
+                  "bias": state["encoder.conv2.bias"]}}
+    n_layer = 1 + max(int(k.split(".")[2]) for k in state
+                      if k.startswith("encoder.blocks."))
+    for i in range(n_layer):
+        pre = f"encoder.blocks.{i}."
+        enc[f"blocks_{i}"] = {
+            "attn_ln": {"scale": state[pre + "attn_ln.weight"],
+                        "bias": state[pre + "attn_ln.bias"]},
+            "mlp_ln": {"scale": state[pre + "mlp_ln.weight"],
+                       "bias": state[pre + "mlp_ln.bias"]},
+            "mlp1": {"kernel": dense_w(state[pre + "mlp.0.weight"]),
+                     "bias": state[pre + "mlp.0.bias"]},
+            "mlp2": {"kernel": dense_w(state[pre + "mlp.2.weight"]),
+                     "bias": state[pre + "mlp.2.bias"]},
+            "attn": {
+                "query": {"kernel": dense_w(state[pre + "attn.query.weight"]),
+                          "bias": state[pre + "attn.query.bias"]},
+                "key": {"kernel": dense_w(state[pre + "attn.key.weight"])},
+                "value": {"kernel": dense_w(state[pre + "attn.value.weight"]),
+                          "bias": state[pre + "attn.value.bias"]},
+                "out": {"kernel": dense_w(state[pre + "attn.out.weight"]),
+                        "bias": state[pre + "attn.out.bias"]},
+                # depthwise Conv1d weight (C, 1, k) -> (k, 1, C)
+                "fsmn_block": {"kernel": conv_w(
+                    state[pre + "attn.fsmn_block.weight"])},
+            },
+        }
+    return {"params": {"encoder": enc, "project_down": {
+        "kernel": dense_w(state["quantizer._codebook.project_down.weight"]),
+        "bias": state["quantizer._codebook.project_down.bias"]}}}

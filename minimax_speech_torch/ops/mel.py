@@ -1,5 +1,6 @@
 """Mel frontends: whisper log-mel (16 kHz, S3 tokenizer input) on tensors,
-HiFi-GAN log-mel (24 kHz, speaker-encoder input) on the host in numpy.
+HiFi-GAN log-mel (24 kHz, speaker-encoder input) on the host in numpy;
+framing and the inverse STFT of the HiFT vocoder's head.
 
 Port of minimax_speech_tpu/ops/mel.py. Framing, padding, window and
 filterbank are copied from it rather than taken from torch.stft's
@@ -65,6 +66,43 @@ def hann_window(win_length: int, dtype=torch.float32,
     """Periodic Hann window."""
     n = torch.arange(win_length, dtype=dtype, device=device)
     return 0.5 - 0.5 * torch.cos(2.0 * torch.pi * n / win_length)
+
+
+def frame_signal(x: torch.Tensor, frame_length: int,
+                 hop: int) -> torch.Tensor:
+    """(..., T) -> (..., 1 + (T - frame_length) // hop, frame_length), the
+    frames starting every `hop` samples (a strided view)."""
+    return x.unfold(-1, frame_length, hop)
+
+
+def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int,
+          length: int | None = None) -> torch.Tensor:
+    """Inverse STFT as torch.istft computes it with center=True and a
+    periodic Hann window of n_fft: real/imag (..., n_fft//2 + 1, frames)
+    -> (..., n_fft + hop (frames - 1) - 2 (n_fft//2)) samples, or the
+    first `length`. Each frame's irfft, windowed, is overlap-added
+    (F.fold, which sums without atomics on the card), divided by the
+    overlap-added squared window (NOLA, floored at 1e-11), and n_fft//2
+    samples are trimmed from both ends. The imaginary parts of the DC
+    and Nyquist bins are set to 0 before the irfft, which is what a
+    real inverse transform of a Hermitian spectrum reads (numpy's and
+    pocketfft's irfft ignore them; cuFFT's is not specified for them)."""
+    win = hann_window(n_fft, real.dtype, real.device)
+    imag = torch.cat([torch.zeros_like(imag[..., :1, :]), imag[..., 1:-1, :],
+                      torch.zeros_like(imag[..., -1:, :])], dim=-2)
+    frames = torch.fft.irfft(torch.complex(real, imag).transpose(-1, -2),
+                             n=n_fft, dim=-1) * win  # (..., frames, n_fft)
+    lead, num_frames = frames.shape[:-2], frames.shape[-2]
+    out_len = n_fft + hop * (num_frames - 1)
+    cols = frames.reshape(-1, num_frames, n_fft).transpose(1, 2)
+    out = F.fold(cols, (1, out_len), (1, n_fft), stride=(1, hop))
+    wsq = F.fold((win ** 2)[None, :, None].expand(1, n_fft, num_frames),
+                 (1, out_len), (1, n_fft), stride=(1, hop))
+    out = (out / torch.clamp(wsq, min=1e-11)).reshape(-1, out_len)
+    out = out[:, n_fft // 2: out_len - n_fft // 2]
+    if length is not None:
+        out = out[:, :length]
+    return out.reshape(lead + out.shape[-1:])
 
 
 def stft_power(x: torch.Tensor, n_fft: int, hop: int,

@@ -37,6 +37,14 @@ def save_params(path: str, module: nn.Module):
                       for p, a in _to_flax(module).items()})
 
 
+def save_tree(path: str, tree: dict):
+    """Write a nested variables tree ({"params": ...}, numpy or array-like
+    leaves, as the converters of utils/convert.py return) as .npz, keyed
+    as the JAX package's save_params keys it."""
+    np.savez(path, **{SEP.join(p): np.asarray(a)
+                      for p, a in _flatten(tree).items()})
+
+
 def load_params(path: str) -> dict:
     """.npz -> nested dict of numpy arrays (the flax variables tree)."""
     data = np.load(path, allow_pickle=False)

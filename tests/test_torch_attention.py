@@ -8,8 +8,8 @@ Only query rows < kv_len are compared: padded rows are undefined.
 Tolerance 2e-5 absolute: float32 softmax attention of O(1) values with
 sums taken in different orders.
 
-The CUDA kernel itself is compared with the plain version on the card
-by the `cuda`-marked test, which skips where there is no GPU.
+The CUDA kernel itself is held against the plain version on the card
+by tests/test_torch_kernels_card.py, which imports no JAX.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -88,34 +88,6 @@ def test_wrapper_rejects_bad_inputs(rng):
         t_fa.flash_attention(q, k, v, kv_len=torch.tensor([3, 4]))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("t,kv_len", [(506, (400, 400)), (77, (77, 40))])
-def test_kernel_matches_plain_on_card(dtype, mode, t, kv_len):
-    """The CUDA kernel against the plain version on the card, valid rows.
-    float32: 1e-5 (same math, other summation order; TF32 off). bf16:
-    one bf16 ulp of the value (both round an fp32 result) plus 1e-5 for
-    fp32 noise on elements near zero, chip_smoke.py's limit."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((2, 8, t, 64), generator=g, device="cuda")
-               .to(dtype) for _ in range(3))
-    lens = torch.tensor(kv_len, device="cuda")
-    before = t_fa.launches
-    out = t_fa.flash_attention(q, k, v, kv_len=lens, **MODES[mode])
-    torch.cuda.synchronize()
-    assert t_fa.launches == before + 1
-    ref = t_fa.reference_attention(q, k, v, lens, **MODES[mode])
-    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2 ** -7)
-    for i, n in enumerate(kv_len):
-        torch.testing.assert_close(out[i, :, :n].float(),
-                                   ref[i, :, :n].float(), atol=atol,
-                                   rtol=rtol)
-
-
 def test_plain_differentiates_on_cpu(rng):
     """CPU tensors that require grad go through the plain version, which
     autograd differentiates (the kernel, forward-only, refuses them)."""
@@ -125,16 +97,3 @@ def test_plain_differentiates_on_cpu(rng):
                                causal=True)
     grads = torch.autograd.grad(out[:, :, :13].square().sum(), (q, k, v))
     assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
-
-
-@pytest.mark.cuda
-def test_kernel_refuses_grad_on_card():
-    """On CUDA, an input that requires grad under grad mode raises and
-    names K2; under no_grad the same call launches."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    q, k, v = (torch.randn((1, 2, 70, 64), device="cuda") for _ in range(3))
-    with pytest.raises(RuntimeError, match="K2"):
-        t_fa.flash_attention(q.requires_grad_(), k, v)
-    with torch.no_grad():
-        assert t_fa.flash_attention(q, k, v).shape == q.shape

@@ -9,9 +9,8 @@ Tolerance: float32 attention of O(1) values with sums in other orders,
 atol 2e-5 and rtol 2e-4.
 
 The autograd.Function around the kernels takes CUDA tensors only and
-raises for CPU ones. The `cuda`-marked tests hold the CUDA kernels
-against the plain version on the card, with the limits of chip_smoke.py
-phase 6, and skip where there is no GPU.
+raises for CPU ones. tests/test_torch_kernels_card.py, which imports no
+JAX, holds the CUDA kernels against the plain version on the card.
 """
 import jax
 import jax.numpy as jnp
@@ -128,48 +127,3 @@ def test_wrapper_rejects_bad_inputs():
         t_sp.splash_causal_attention(q, k.double(), v, torch.tensor([20]))
     with pytest.raises(ValueError, match="kv_len"):
         t_sp.splash_causal_attention(q, k, v, torch.tensor([3, 4]))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("shape,kv_len", [((2, 14, 512, 64), (512, 301)),
-                                          ((2, 8, 77, 64), (77, 40))])
-def test_kernel_matches_plain_on_card(dtype, mode, shape, kv_len):
-    """The CUDA kernels against the plain version on the card, all rows:
-    forward and dq, dk, dv, |err| <= atol + rtol * |ref|. float32: the
-    same math in other summation orders (TF32 off), 1e-5 + 1e-5 on the
-    output and 1e-5 + 1e-4 on the gradients. bf16: both sides round an
-    fp32 result, so they may differ by one bf16 ulp (rtol 2^-7); dq and
-    dk are compared after the known shift of the kernels' Delta, taken
-    from the rounded output (rounded_delta_shift); atol 1e-5 and 1e-4
-    cover fp32 noise on elements near zero."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    chunk, left = MODES[mode]
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                   for _ in range(4))
-    lens = torch.tensor(kv_len, device="cuda")
-
-    def run(fn):
-        x = [a.clone().requires_grad_() for a in (q, k, v)]
-        out = fn(*x, lens, chunk, left)
-        return [out.detach()] + list(torch.autograd.grad(out, x, do))
-
-    before = dict(t_sp.launches)
-    ours = run(t_sp.splash_chunk_attention)
-    torch.cuda.synchronize()
-    assert t_sp.launches["forward"] == before["forward"] + 1
-    assert t_sp.launches["backward"] == before["backward"] + 1
-    ref = run(t_sp.reference_splash_attention)
-    dq_shift, dk_shift = t_sp.rounded_delta_shift(q, k, v, ours[0], do, lens,
-                                                  chunk, left)
-    f32 = dtype == torch.float32
-    tols = [(1e-5, 1e-5) if f32 else (1e-5, 2 ** -7)] \
-        + [(1e-5, 1e-4) if f32 else (1e-4, 2 ** -7)] * 3
-    for a, r, shift, (atol, rtol) in zip(ours, ref, (0, dq_shift, dk_shift, 0),
-                                         tols):
-        torch.testing.assert_close(a.float() - shift, r.float(), atol=atol,
-                                   rtol=rtol)

@@ -405,6 +405,12 @@ def test_session_fade_matches_jax():
 
 
 def test_mel_mode_streaming_raises(tiny_pipe):
-    pipe = dataclasses.replace(tiny_pipe.cfg, output_type="mel")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_sess.StreamingSession(type("P", (), {"cfg": pipe})())
+    """Mel mode streams since HiFT is ported (tests/test_torch_mel_mode.py
+    holds it against JAX): a mel-mode session builds; what still raises
+    is an output_type that is neither 'latent' nor 'mel'."""
+    cfg = dataclasses.replace(tiny_pipe.cfg, output_type="mel")
+    sess = t_sess.StreamingSession(t_pl.TTSPipeline(cfg, device="cpu"))
+    assert sess.p.hift is not None and sess.p.dac is None
+    with pytest.raises(ValueError, match="output_type"):
+        t_pl.TTSPipeline(dataclasses.replace(cfg, output_type="wave"),
+                         device="cpu")
