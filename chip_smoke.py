@@ -131,7 +131,32 @@ a line; any failure ends the run with a non-zero exit:
      and cli/convert_checkpoint.main into a checkpoint directory: the
      pipeline loaded from it holds the converter's weights bit for bit
      and gives the token ids of one built from them in memory, and its
-     PCM within PCM_TOL_LSB.
+     PCM within PCM_TOL_LSB;
+ 28. phase 7's LM step with per-layer remat off, "dots" and "none"
+     (torch.utils.checkpoint; K2 runs inside the recompute): 2 warm-up
+     and 3 timed steps each (step_s, peak memory, a profiled step's busy
+     time); K2 launches per step asserted per mode, 24 + 24 off and
+     48 + 24 with remat (the recompute launches each layer's forward
+     again), K1 none; the first-step gradients of each remat mode within
+     REMAT_GRAD_RTOL of the remat-off step's, per leaf;
+ 29. DPO (train/gan_steps.make_dpo_step) at full width: phase 7's LM as
+     the policy, a jittered copy as the frozen reference, 8 chosen and 8
+     rejected plans (other speech lengths) padded to 512; 2 warm-up and 5
+     timed steps and a profiled one with remat off, then with "dots"; K2
+     launches per step asserted, 96 + 48 off and 144 + 48 with "dots"
+     (four forwards, two under grad, recomputed), K1 none; over 10 steps
+     the loss falls and the reward accuracy does not;
+ 30. DPO at 2 layers, card (remat off, then "dots") against the CPU with
+     the same weights, reference and batch (4 of phase 29's 8 pairs): the first step's sequence
+     log-probs and every step's rewards, then phase 9's checks on the
+     loss, the reward accuracy, every leaf's first-step gradient and the
+     parameters after 3 steps;
+ 31. cli/train.main --model llm --dpo --ref_ckpt (phase 29's reference
+     weights as a .npz) at full width for one epoch on phase 8's
+     corpus with a <stem>_fsq_reject.npy beside every wav: the four
+     dpo/* metrics in every row, a resume, K2's launches per step; then
+     the plain LM with --override model.lm.qwen.remat=true (policy
+     "dots") for one epoch, K2's launches per step.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -225,6 +250,19 @@ TRAIN_PARAM_TOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_SHARE = 0.05, 1e-6, 1e-3
 HIFT_SEED, HIFT_FRAMES = 23, 250
 HIFT_DECODE_TOL = 1e-5
 DECODE_GAIN = 4.0
+# phases 28-31, the rest of LM training. Remat repeats the same float32
+# work in the backward (TF32 off), so the first-step gradients of each
+# remat mode lie within REMAT_GRAD_RTOL of each leaf's largest element of
+# the remat-off step's; they lay 1.05e-7 apart, in the 2-row
+# llm_embedding (H100 80GB HBM3, 700 W), and phase 28 prints two
+# remat-off runs' distance beside it. DPO at the JAX package's
+# beta; the reference policy is the policy with every parameter moved by
+# DPO_JITTER times its leaf's spread, so the rewards are not 0
+REMAT_GRAD_RTOL = 1e-6
+DPO_BETA, DPO_JITTER = 0.01, 0.01
+# phase 30 runs 4 of phase 29's 8 pairs: the CPU's four forwards and two
+# backwards per step set the phase's time
+DPO_CROSS_BATCH = 4
 # the flow training batch of phases 19-22: utterances of 160-256 tokens,
 # padded to 256 (T = 512 latent frames), ragged reference mels
 FLOW_BATCH, FLOW_TOKENS, FLOW_REF_FRAMES = 8, (160, 256), 224
@@ -1592,20 +1630,29 @@ def k2_timing(gen, shape, kv, mode: str) -> dict:
             "shape": list(shape), "kv_len": list(kv), "mode": mode}
 
 
-def lm_batch(lm_cfg, batch: int = LM_BATCH, pad_to: int = LM_PAD):
-    """The fixed LM training batch: unistream plans of LM_TEXT text tokens
-    and 250-460 speech tokens, padded to `pad_to`, and ragged reference
-    mels, from numpy seed 0."""
+def lm_plan(lm_cfg, texts, speech, pad_to: int = LM_PAD) -> dict:
+    """Unistream plans of `texts` and `speech` token lists, padded."""
     from minimax_speech_torch.models import llm as llm_mod
 
+    return llm_mod.build_lm_plan(
+        texts, speech, mix_ratio=lm_cfg.mix_ratio, pad_to=pad_to,
+        eos=lm_cfg.eos_token, fill=lm_cfg.fill_token)
+
+
+def lm_batch(lm_cfg, batch: int = LM_BATCH, pad_to: int = LM_PAD,
+             texts_out=None):
+    """The fixed LM training batch: unistream plans of LM_TEXT text tokens
+    and 250-460 speech tokens, padded to `pad_to`, and ragged reference
+    mels, from numpy seed 0. The text token lists are appended to
+    `texts_out` when given."""
     rng = np.random.default_rng(0)
     n_speech = rng.integers(250, 461, batch)
-    plan = llm_mod.build_lm_plan(
-        [rng.integers(1, lm_cfg.qwen.vocab_size, LM_TEXT)
-         for _ in range(batch)],
-        [rng.integers(0, lm_cfg.speech_token_size, n) for n in n_speech],
-        mix_ratio=lm_cfg.mix_ratio, pad_to=pad_to,
-        eos=lm_cfg.eos_token, fill=lm_cfg.fill_token)
+    texts = [rng.integers(1, lm_cfg.qwen.vocab_size, LM_TEXT)
+             for _ in range(batch)]
+    plan = lm_plan(lm_cfg, texts, [rng.integers(
+        0, lm_cfg.speech_token_size, n) for n in n_speech], pad_to)
+    if texts_out is not None:
+        texts_out.extend(texts)
     mel_len = rng.integers(100, LM_REF_FRAMES + 1, batch).astype(np.int32)
     ref = np.zeros((batch, LM_REF_FRAMES, lm_cfg.speaker.mel_dim),
                    np.float32)
@@ -1821,15 +1868,32 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0) -> Path:
     return lst
 
 
+def write_rejects(lst: Path, seed: int = 2):
+    """A <stem>_fsq_reject.npy beside every wav of the list: random tokens,
+    up to 40 more or fewer than the chosen ones."""
+    rng = np.random.default_rng(seed)
+    for wav in lst.read_text().splitlines():
+        stem = wav[:-len(".wav")]
+        n = len(np.load(stem + "_fsq.npy")) + int(rng.integers(-40, 41))
+        np.save(stem + "_fsq_reject.npy",
+                rng.integers(0, 6561, n).astype(np.int32))
+
+
 def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
-              model: str = "llm"):
-    """Phases 8 and 21: cli/train.main at full width for one epoch on a
-    synthetic corpus (a batch holds about 8 utterances), then a second
+              model: str = "llm", dpo: bool = False, remat: str = "off",
+              resume: bool = True):
+    """Phases 8, 21 and 31: cli/train.main at full width for one epoch on
+    a synthetic corpus (a batch holds about 8 utterances), then a second
     call that resumes at the saved step. The flow run also takes a cv
     pass over the corpus, and on the card its train steps must launch
     only K2 in the UNet (per step one forward and one backward per
     transformer block) and its cv pass only K1 (one per block and
-    batch)."""
+    batch). With `dpo` (phase 31) the corpus has reject sidecars and the
+    run is --dpo against a --ref_ckpt of phase 29's reference weights
+    (ref_checkpoint), its rows hold the four dpo/* metrics; `remat` other than
+    "off" sets model.lm.qwen.remat and its policy. An LM run on the card
+    other than phase 8's must launch K2 as k2_per_step says, K1 never.
+    `resume` False skips the second call."""
     import shutil
     import tempfile
 
@@ -1850,7 +1914,15 @@ def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
                 "--override", "train.save_per_step=2",
                 "--override", "train.warmup_steps=0",
                 "--override", "train.log_interval=1"]
+        if remat != "off":
+            argv += ["--override", "model.lm.qwen.remat=true",
+                     "--override", f"model.lm.qwen.remat_policy={remat}"]
+        if dpo:
+            write_rejects(lst)
+            argv += ["--dpo", "--ref_ckpt", str(ref_checkpoint(
+                repo / config, root / "ref.npz"))]
         cv = ["--cv_data", str(lst)] if model == "flow" else []
+        loss_key = "dpo/loss" if dpo else "loss"
         reset_counts()
         t0 = time.perf_counter()
         first = train_cli.main(argv + cv)
@@ -1858,23 +1930,32 @@ def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
         k2, k1 = read_counts()
         rows = [json.loads(line) for line in (
             model_dir / f"{model}_metrics.jsonl").read_text().splitlines()]
-        losses = [r["loss"] for r in rows if "loss" in r]
+        losses = [r[loss_key] for r in rows if loss_key in r]
+        dpo_keys = {"dpo/loss", "dpo/chosen_reward", "dpo/rejected_reward",
+                    "dpo/reward_acc"}
+        if dpo and not all(dpo_keys <= r.keys() for r in rows
+                           if loss_key in r):
+            raise AssertionError(f"train CLI --dpo rows: {rows}")
         cv_losses = [r["cv/loss"] for r in rows if "cv/loss" in r]
         ckpts = sorted(p.name for p in (model_dir / "ckpt").iterdir())
         if not losses or not np.isfinite(losses + cv_losses).all() \
                 or not ckpts or len(cv_losses) != bool(cv):
             raise AssertionError(f"train CLI: losses {losses}, cv "
                                  f"{cv_losses}, checkpoints {ckpts}")
-        second = train_cli.main(argv)
-        t2 = time.perf_counter()
-        if second.step != first.step or str(first.step) not in ckpts:
-            raise AssertionError(f"train CLI resume: step {second.step}, "
-                                 f"first run {first.step}, ckpts {ckpts}")
-        log(f"[cli] --model {model}: one epoch of {len(losses)} steps in "
+        resumed = "no second call"
+        if resume:
+            second = train_cli.main(argv)
+            if second.step != first.step or str(first.step) not in ckpts:
+                raise AssertionError(f"train CLI resume: step "
+                                     f"{second.step}, first run "
+                                     f"{first.step}, ckpts {ckpts}")
+            resumed = (f"second call resumed at step {second.step} in "
+                       f"{time.perf_counter() - t1:.1f} s")
+        log(f"[cli] --model {model}{' --dpo' * dpo} remat {remat}: one "
+            f"epoch of {len(losses)} steps in "
             f"{t1 - t0:.1f} s, losses {[round(x, 4) for x in losses]}, cv "
             f"{[round(x, 4) for x in cv_losses]}, checkpoints {ckpts}, K2 "
-            f"launches {k2}, K1 launches {k1}; second call resumed at step "
-            f"{second.step} in {t2 - t1:.1f} s")
+            f"launches {k2}, K1 launches {k1}; {resumed}")
         if model == "flow" and device == "cuda":
             n = attn_calls_per_step(first.module.cfg.unet)
             if k2 != {"forward": n * first.step, "backward": n * first.step} \
@@ -1882,8 +1963,27 @@ def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
                 raise AssertionError(f"train CLI --model flow: K2 {k2}, K1 "
                                      f"{k1}, {first.step} steps, {n} "
                                      f"attention calls per UNet pass")
+        if model == "llm" and (dpo or remat != "off") and device == "cuda":
+            per, _ = k2_per_step(first.module.cfg, 4 if dpo else 1,
+                                 2 if dpo else 1, remat)
+            if (k2, k1) != ({k: n * first.step for k, n in per.items()}, 0):
+                raise AssertionError(f"train CLI, dpo {dpo}, remat {remat}: "
+                                     f"K2 {k2}, K1 {k1} in {first.step} "
+                                     f"steps, expected {per} per step")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def ref_checkpoint(config: Path, path: Path) -> Path:
+    """Phase 29's reference policy (seed 0 jittered from seed 1) at the
+    LM geometry of `config`, written as a .npz in the JAX package's
+    format: weights unlike the CLI's starting ones (seed 1986)."""
+    from minimax_speech_torch import config as cfg_lib
+    from minimax_speech_torch.utils import params_io
+
+    lm = lm_module(cfg_lib.load_tts_config(str(config)).lm, "cpu", 0, 1)
+    params_io.save_params(str(path), lm)
+    return path
 
 
 def first_grads(model, loss) -> dict:
@@ -2167,6 +2267,322 @@ def flow_cross_check(full_flow_cfg, batch, device="cuda", steps_n=3):
     compare_training(runs, device, steps_n, "cross-flow",
                      "flow, 1 mid UNet stage, 1+1 encoder blocks",
                      symmetric=symmetric, k2_leaves=k2_leaves, truth=truth)
+
+
+def remat_lm(lm_cfg, mode: str):
+    """lm_cfg with per-layer remat off ("off") or under policy `mode`."""
+    return dataclasses.replace(lm_cfg, qwen=dataclasses.replace(
+        lm_cfg.qwen, remat=mode != "off",
+        remat_policy="dots" if mode == "off" else mode))
+
+
+def k2_per_step(lm_cfg, forwards: int, backwards: int, mode: str) -> tuple:
+    """(K2's expected {forward, backward} launches, K1's) per step of an
+    LM step with `forwards` forward passes of which `backwards` are under
+    grad: a remat mode recomputes each layer's forward once in the
+    backward."""
+    n = lm_cfg.qwen.n_layers
+    recompute = backwards if mode != "off" else 0
+    return {"forward": n * (forwards + recompute),
+            "backward": n * backwards}, 0
+
+
+def measured_steps(step, state, args, per_step, what: str, card: str,
+                   device="cuda", timed: int = 5, base: int = 0) -> dict:
+    """Phases 28 and 29: 2 warm-up steps of step(state, *args), `timed`
+    counted and timed ones (each must launch (K2's counts, K1's count)
+    `per_step` on the card, none on the CPU), then one profiled. Returns
+    every step's metrics, the median step_s, the peak of device memory
+    over the warm-up and timed steps less `base` (the bytes allocated
+    before the phase built its models: earlier phases' leftovers) and
+    the profile."""
+    import torch
+
+    on_card = device == "cuda"
+    expect = per_step if on_card else ({"forward": 0, "backward": 0}, 0)
+    metrics, secs = [], []
+
+    def one():
+        t0 = time.perf_counter()
+        _, m = step(state, *args)
+        m = {k: float(v) for k, v in m.items()}  # syncs
+        if on_card:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not np.isfinite(list(m.values())).all():
+            raise AssertionError(f"{what} step {state.step}: {m}")
+        metrics.append(m)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        one()
+    reset_counts()
+    for _ in range(timed):
+        one()
+    k2, k1 = read_counts()
+    if (k2, k1) != ({k: n * timed for k, n in expect[0].items()},
+                    expect[1] * timed):
+        raise AssertionError(f"{what}: {timed} steps launched K2 {k2} and "
+                             f"K1 {k1}, expected {expect} per step")
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    prof = profile_step(one, f"one {what} step") if on_card else {}
+    step_s = statistics.median(secs[2: 2 + timed])
+    memory = (f"{peak / 2**30:.2f} GiB above {base / 2**30:.2f} GiB held "
+              f"before" if on_card else "not measured")
+    log(f"[train] {card} | {what} | median step_s {step_s:.4f} (steps "
+        f"{[round(x, 4) for x in secs[2: 2 + timed]]}) | peak memory "
+        f"{memory} | K2 launches per step "
+        f"{ {k: n / timed for k, n in k2.items()} }, K1 {k1 / timed}")
+    return {"metrics": metrics, "step_s": step_s, "peak_gib": peak / 2**30,
+            "profile": prof, "launches": sum(k2.values()),
+            "per_step": {k: n / timed for k, n in k2.items()}}
+
+
+def memory_in_use(device) -> int:
+    """Bytes allocated on `device` (0 on the CPU)."""
+    import torch
+    return torch.cuda.memory_allocated() if device == "cuda" else 0
+
+
+def remat_phase(lm_cfg, batch, card: str, device="cuda") -> dict:
+    """Phase 28: phase 7's LM and batch with remat off, "dots" and "none":
+    2 warm-up and 3 timed steps each (step_s, peak memory, a profiled
+    step); K2 24 + 24 launches per step off, 48 + 24 with remat. The
+    first-step gradients of each remat mode within REMAT_GRAD_RTOL of
+    each leaf's largest of the remat-off step's."""
+    import torch
+
+    from minimax_speech_torch.train import steps
+
+    b = _on(batch, device)
+    out, ref = {}, None
+    base = memory_in_use(device)
+    for mode in ("off", "dots", "none"):
+        cfg = remat_lm(lm_cfg, mode)
+        model, state = lm_state(cfg, device)
+        grads = first_grads(model, steps.make_lm_loss_fn(model)(b)[0])
+        if ref is None:
+            ref = grads
+            err = grad_errors(first_grads(
+                model, steps.make_lm_loss_fn(model)(b)[0]), ref)
+            worst = max(err, key=err.get)
+            log(f"[remat] off: a second remat-off first step against the "
+                f"first (run-to-run spread), worst max |diff| "
+                f"{err[worst]:.2e} of the leaf's largest ({worst})")
+        else:
+            err = grad_errors(grads, ref)
+            worst = max(err, key=err.get)
+            log(f"[remat] {mode}: first-step gradients against remat off, "
+                f"worst max |diff| {err[worst]:.2e} of the leaf's largest "
+                f"({worst}; tol {REMAT_GRAD_RTOL:g})")
+            if err[worst] > REMAT_GRAD_RTOL:
+                raise AssertionError(f"remat {mode} changes the gradients")
+        del grads
+        rec = measured_steps(
+            steps.make_lm_train_step(model, device=device), state, (b,),
+            k2_per_step(cfg, 1, 1, mode), f"LM remat {mode}", card, device,
+            timed=3, base=base)
+        out[mode] = {k: rec[k] for k in ("step_s", "peak_gib", "per_step",
+                                         "launches")}
+        out[mode]["busy_ms"] = rec["profile"].get("busy_ms")
+        del model, state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    if device == "cuda":
+        log(f"[remat] {card} | "
+            + " | ".join(f"{m}: step_s {r['step_s']:.4f}, peak "
+                         f"{r['peak_gib']:.2f} GiB, busy {r['busy_ms']} ms"
+                         for m, r in out.items()))
+    return out
+
+
+def dpo_batch(lm_cfg, batch: int = LM_BATCH, pad_to: int = LM_PAD):
+    """Phase 7's batch as the chosen plans, and rejected plans of the same
+    texts with other speech (250-460 tokens, each length unlike its
+    chosen one's) at the same pad, from numpy seed 1."""
+    texts = []
+    out = lm_batch(lm_cfg, batch, pad_to, texts_out=texts)
+    n_chosen = np.random.default_rng(0).integers(250, 461, batch)  # its
+    rng = np.random.default_rng(1)                    # first draw above
+    n_rej = rng.integers(250, 461, batch)
+    n_rej = np.where(n_rej == n_chosen, n_rej + 1, n_rej)
+    rej = lm_plan(lm_cfg, texts, [rng.integers(
+        0, lm_cfg.speech_token_size, n) for n in n_rej], pad_to)
+    out.update({k + "_rej": v for k, v in rej.items()})
+    return out
+
+
+@functools.cache
+def lm_weights(lm_cfg, seed: int, jitter_seed=None) -> dict:
+    """The CPU state dict of SpeechLM(lm_cfg) initialised from `seed` (as
+    _train_state initialises it); with jitter_seed, every leaf moved by
+    DPO_JITTER times its spread (1 where it is constant) times N(0, 1)
+    from jitter_seed. Made once per argument set for phases 28-31."""
+    import torch
+
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.utils import params_io
+
+    if jitter_seed is not None:
+        gen = torch.Generator().manual_seed(jitter_seed)
+        out = {}
+        for k, v in lm_weights(lm_cfg, seed).items():
+            spread = float(v.std()) if v.numel() > 1 else 0.0
+            out[k] = v + DPO_JITTER * (spread or 1.0) * torch.randn(
+                v.shape, generator=gen)
+        return out
+    return params_io.init_params(
+        llm_mod.SpeechLM(remat_lm(lm_cfg, "off")),
+        torch.Generator().manual_seed(seed)).state_dict()
+
+
+def lm_module(lm_cfg, device, seed: int = 0, jitter_seed=None):
+    """SpeechLM(lm_cfg) on `device` holding a copy of lm_weights' weights
+    (built without weights first: no initialiser runs)."""
+    import torch
+
+    from minimax_speech_torch.models import llm as llm_mod
+
+    with torch.device("meta"):
+        model = llm_mod.SpeechLM(lm_cfg)
+    weights = lm_weights(remat_lm(lm_cfg, "off"), seed, jitter_seed)
+    model.load_state_dict({k: v.to(device, copy=True)
+                           for k, v in weights.items()}, assign=True)
+    return model
+
+
+def lm_state(lm_cfg, device, seed: int = 0):
+    """_train_state's model and state, the weights from lm_weights."""
+    from minimax_speech_torch.train import schedule, steps
+
+    model = lm_module(lm_cfg, device, seed)
+    return model, steps.make_train_state(model, schedule.make_optimizer(
+        lr=TRAIN_LR, warmup_steps=0))
+
+
+def dpo_models(lm_cfg, device, mode="off", seed=0):
+    """(policy, its train state, the reference policy) on `device`: the
+    policy initialised from `seed` (remat `mode`), the reference the same
+    weights jittered from seed + 1 (lm_weights)."""
+    model, state = lm_state(remat_lm(lm_cfg, mode), device, seed)
+    return model, state, lm_module(lm_cfg, device, seed, seed + 1)
+
+
+def dpo_phase(lm_cfg, batch, card: str, device="cuda") -> dict:
+    """Phase 29: make_dpo_step at full width on the fixed DPO batch, the
+    policy phase 7's LM and the reference a jittered copy: 2 warm-up and
+    5 timed steps, a profiled one, with remat off (then steps to 10: the
+    loss must fall and the reward accuracy not fall), then with "dots";
+    K2 96 + 48 launches per step off, 144 + 48 with remat, K1 none."""
+    import torch
+
+    from minimax_speech_torch.train import gan_steps
+
+    b = _on(batch, device)
+    out = {}
+    base = memory_in_use(device)
+    for mode in ("off", "dots"):
+        model, state, ref = dpo_models(lm_cfg, device, mode)
+        step = gan_steps.make_dpo_step(model, ref, DPO_BETA, device=device)
+        rec = measured_steps(step, state, (b,),
+                             k2_per_step(lm_cfg, 4, 2, mode),
+                             f"DPO remat {mode}", card, device, base=base)
+        m = rec["metrics"]
+        if mode == "off":
+            while len(m) < 10:
+                _, last = step(state, b)
+                m.append({k: float(v) for k, v in last.items()})
+            first, tenth = m[0], m[9]
+            log(f"[dpo] {card} | 10 steps: dpo/loss {first['dpo/loss']:.5f}"
+                f" -> {tenth['dpo/loss']:.5f}, reward_acc "
+                f"{first['dpo/reward_acc']:.3f} -> "
+                f"{tenth['dpo/reward_acc']:.3f}, chosen reward "
+                f"{first['dpo/chosen_reward']:.5f} -> "
+                f"{tenth['dpo/chosen_reward']:.5f}, rejected "
+                f"{first['dpo/rejected_reward']:.5f} -> "
+                f"{tenth['dpo/rejected_reward']:.5f}")
+            if not (tenth["dpo/loss"] < first["dpo/loss"]
+                    and tenth["dpo/reward_acc"] >= first["dpo/reward_acc"]):
+                raise AssertionError("DPO: the loss did not fall or the "
+                                     "reward accuracy fell in 10 steps")
+        out[mode] = {k: rec[k] for k in ("step_s", "peak_gib", "per_step",
+                                         "launches", "profile")}
+        del model, state, ref, step
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dpo_loss_of(model, ref, batch):
+    """(DPO loss, the four sequence log-probs) of `model` against `ref`."""
+    import torch
+
+    from minimax_speech_torch.train import gan_steps
+    from minimax_speech_torch.utils import losses
+
+    with torch.no_grad():
+        ref_c, ref_r = gan_steps._seq_logps(ref, batch)
+    c, r = gan_steps._seq_logps(model, batch)
+    return (losses.dpo_loss(c, r, ref_c, ref_r, DPO_BETA)[0],
+            (c, r, ref_c, ref_r))
+
+
+def dpo_cross_check(full_lm_cfg, batch, device="cuda", steps_n=3):
+    """Phase 30: make_dpo_step at 2 layers, float32, the same weights,
+    reference and batch (the first DPO_CROSS_BATCH pairs of `batch`) on
+    the CPU (remat off) and on `device` (remat off, then "dots"). Each card run against the CPU run: the first step's
+    sequence log-probs (policy and reference, chosen and rejected, the
+    rewards' terms) within phase 9's metric limit, relative; the rewards
+    of every step within what that limit allows them (DPO_BETA x
+    TRAIN_METRIC_RTOL x 2 x the largest |log-prob|); then compare_training
+    on the loss and the reward accuracy, the first-step gradients and the
+    parameters after `steps_n` steps."""
+    from minimax_speech_torch.train import gan_steps
+
+    cfg = dataclasses.replace(full_lm_cfg, qwen=dataclasses.replace(
+        full_lm_cfg.qwen, n_layers=2))
+    batch = {k: v[:DPO_CROSS_BATCH] for k, v in batch.items()}
+
+    def run(dev, mode):
+        model, state, ref = dpo_models(cfg, dev, mode, seed=5)
+        b = _on(batch, dev)
+        loss, logps = dpo_loss_of(model, ref, b)
+        grads = first_grads(model, loss)
+        step = gan_steps.make_dpo_step(model, ref, DPO_BETA, device=dev)
+        metrics = []
+        for _ in range(steps_n):
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        return (metrics, grads, {n: p.detach().cpu() for n, p in
+                                 model.named_parameters()},
+                np.stack([x.detach().cpu().numpy() for x in logps]))
+
+    cpu = run("cpu", "off")
+    scale = float(np.abs(cpu[3]).max())
+    for mode in ("off", "dots"):
+        card = run(device, mode)
+        logp_err = float((np.abs(card[3] - cpu[3]) / np.abs(cpu[3])).max())
+        tol = DPO_BETA * TRAIN_METRIC_RTOL * 2 * scale
+        worst = max(abs(a[k] - c[k]) for a, c in zip(card[0], cpu[0])
+                    for k in ("dpo/chosen_reward", "dpo/rejected_reward"))
+        log(f"[cross-dpo] remat {mode}: first-step sequence log-probs "
+            f"{cpu[3].min():.1f}..{cpu[3].max():.1f}, worst rel diff "
+            f"{logp_err:.2e} (tol {TRAIN_METRIC_RTOL:g}); rewards "
+            f"{[round(m['dpo/chosen_reward'], 6) for m in card[0]]} vs "
+            f"{[round(m['dpo/chosen_reward'], 6) for m in cpu[0]]} "
+            f"(chosen), worst |diff| {worst:.2e} (tol {tol:.2e})")
+        if logp_err > TRAIN_METRIC_RTOL or worst > tol:
+            raise AssertionError("DPO log-probs or rewards differ between "
+                                 "the card and the CPU")
+
+        def keep(rec):
+            return ([{"loss": m["dpo/loss"],
+                      "reward_acc": m["dpo/reward_acc"]} for m in rec[0]],
+                    rec[1], rec[2])
+
+        compare_training({"cpu": keep(cpu), device: keep(card)}, device,
+                         steps_n, "cross-dpo", f"DPO, 2 layers, remat {mode}")
 
 
 def phase_time(n: int, t0: float) -> float:
@@ -2780,7 +3196,28 @@ def main() -> int:
     cross_check(pipes, inputs, hift_gaps=hift_rec["gaps"])
     t0 = phase_time(26, t0)
     convert_phase(pipes, inputs, card)
-    phase_time(27, t0)
+    del pipes
+    torch.cuda.empty_cache()
+    t0 = phase_time(27, t0)
+
+    # the rest of LM training: phases 28-31, each timed
+    remat_rec = remat_phase(train_lm, batch, card)
+    t0 = phase_time(28, t0)
+    dbatch = dpo_batch(train_lm)
+    dpo_rec = dpo_phase(train_lm, dbatch, card)
+    t0 = phase_time(29, t0)
+    dpo_cross_check(train_lm, dbatch)
+    t0 = phase_time(30, t0)
+    cli_phase(dpo=True)
+    cli_phase(remat="dots", resume=False)
+    lm_weights.cache_clear()
+    phase_time(31, t0)
+    # totals over the timed steps, as lm_train's; per step beside them
+    paths = {f"lm_train_remat_{m}": r for m, r in remat_rec.items()}
+    paths.update({f"dpo_train_remat_{m}": r for m, r in dpo_rec.items()})
+    k2["launches_by_path"].update({p: r["launches"] for p, r in
+                                   paths.items()})
+    k2["per_step_by_path"] = {p: r["per_step"] for p, r in paths.items()}
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))

@@ -1,8 +1,10 @@
 """Training CLI: `python -m minimax_speech_torch.cli.train --model {llm,flow}`.
 
 Port of the single-device path of minimax_speech_tpu/cli/train.py for
-the Stage-1 LM (`--model llm`) and the Stage-2 flow (`--model flow`,
-with `--latent_stats`): config + overrides, the data pipeline (the flow
+the Stage-1 LM (`--model llm`; `--dpo` fine-tunes it against a frozen
+reference policy, `--ref_ckpt` or the starting weights, on
+<stem>_fsq_reject sidecars) and the Stage-2 flow (`--model flow`, with
+`--latent_stats`): config + overrides, the data pipeline (the flow
 chain ends in padding_flow), the model from a seed or an `--init_ckpt`
 .npz (the JAX package's format), AdamW + clip, the metrics log,
 checkpoints with resume, the epoch loop, `--cv_data`, and `--export_npz`
@@ -14,15 +16,20 @@ without grad (the cv loss) through K1 (models/decoder_unet.py). Runs on
 
 Epoch resume departs from the JAX CLI on purpose, fixing two flaws:
   * the run key hashes the train list's content, --model, the latent
-    stats and the --dpo, --bf16 and --init_ckpt flags besides the train
-    config and max_epoch, so a run on other data or with other flags
-    starts at epoch 0;
+    stats and the --dpo, --bf16, --init_ckpt and --ref_ckpt flags besides
+    the train config and max_epoch, so a run on other data or with other
+    flags starts at epoch 0;
   * the rollback is counted in epochs: epoch_state.json keeps the step
     at which each completed epoch ended, and a resume from a checkpoint
     at step S restarts at the first epoch that ended after S.
 
+As in the JAX CLI, --bf16 does nothing under --dpo (the DPO step has no
+bf16 route); the CLI says so. Per-layer remat of the LM:
+--override model.lm.qwen.remat=true (model.lm.qwen.remat_policy none or
+dots).
+
 Not ported yet (each raises NotImplementedError; ROADMAP.md, queue 1):
---dpo, --distributed, --tp/--dp > 1, and a tokenizer path.
+--distributed, --tp/--dp > 1 (multi-GPU), and a tokenizer path.
 """
 from __future__ import annotations
 
@@ -35,9 +42,11 @@ from pathlib import Path
 import numpy as np
 
 INIT_SEED = 1986
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 3: the rest of "
-               "LM training)")
-BATCH_KEYS = {"llm": ("src_type", "tok_id", "target", "seq_len",
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 3d: "
+               "multi-GPU)")
+PLAN_KEYS = ("src_type", "tok_id", "target", "seq_len")
+BATCH_KEYS = {"llm": (*PLAN_KEYS, "reference_mel", "reference_mel_len"),
+              "dpo": (*PLAN_KEYS, *(k + "_rej" for k in PLAN_KEYS),
                       "reference_mel", "reference_mel_len"),
               "flow": ("token", "token_len", "feat", "feat_len",
                        "reference_mel", "reference_mel_len")}
@@ -63,7 +72,13 @@ def parse_args(argv=None):
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 forward/backward (fp32 optimizer)")
-    p.add_argument("--dpo", action="store_true")
+    p.add_argument("--dpo", action="store_true",
+                   help="DPO fine-tuning (llm only): needs <stem>_fsq_reject "
+                        "sidecars; the frozen reference policy is "
+                        "--ref_ckpt (default: the starting weights)")
+    p.add_argument("--ref_ckpt", type=str, default=None,
+                   help=".npz of the DPO reference policy (the JAX "
+                        "package's format)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches prepared ahead in a background thread "
                         "(0 disables)")
@@ -79,25 +94,27 @@ def parse_args(argv=None):
 
 
 def check_ported(args):
-    if args.dpo:
-        raise NotImplementedError(f"--dpo {_NOT_PORTED}")
+    if args.dpo and args.model != "llm":
+        raise ValueError("--dpo fine-tunes the LM: it takes --model llm")
     if args.distributed:
         raise NotImplementedError(f"--distributed {_NOT_PORTED}")
     if args.tp != 1 or (args.dp or 1) != 1:
         raise NotImplementedError(f"--tp/--dp > 1 {_NOT_PORTED}")
 
 
-def build_stages(cfg_train, tokenizer, model_kind: str = "llm"):
+def build_stages(cfg_train, tokenizer, model_kind: str = "llm",
+                 dpo: bool = False):
     """The chain: open, tokenize, filter, resample, reference mel,
-    shuffle, sort, frame-budget batches, then the LM's plan padding or
-    the flow's padding."""
+    shuffle, sort, frame-budget batches, then the LM's plan padding (with
+    the rejected plans under dpo) or the flow's padding."""
     from minimax_speech_torch.data import pipeline as dp
     if model_kind == "flow":
         pad = dp.padding_flow
     else:
         def pad(it):
             return dp.padding_llm(
-                it, bistream_prob=cfg_train.get("bistream_prob", 0.5))
+                it, bistream_prob=cfg_train.get("bistream_prob", 0.5),
+                dpo=dpo)
     return [
         dp.individual_file_opener,
         lambda it: dp.tokenize(it, tokenizer),
@@ -120,7 +137,7 @@ def run_key(tcfg: dict, max_epoch: int, train_list: str, args,
     data = hashlib.sha256(Path(train_list).read_bytes()).hexdigest()
     return hashlib.sha256(json.dumps(
         [tcfg, max_epoch, data, args.model, latent_stats, bool(args.dpo),
-         bool(args.bf16), args.init_ckpt], sort_keys=True,
+         bool(args.bf16), args.init_ckpt, args.ref_ckpt], sort_keys=True,
         default=str).encode()).hexdigest()[:16]
 
 
@@ -187,9 +204,23 @@ def main(argv=None):
         params_io.init_params(model,
                               torch.Generator().manual_seed(INIT_SEED))
     model.to(device)
-    make_step = steps.make_flow_train_step if flow \
-        else steps.make_lm_train_step
-    step_fn = make_step(model, bf16=args.bf16, device=device)
+    if args.dpo:
+        from minimax_speech_torch.train import gan_steps
+        ref = llm_mod.SpeechLM(tts_cfg.lm)
+        if args.ref_ckpt:
+            params_io.load_flax_params(ref, params_io.load_params(
+                args.ref_ckpt))
+        else:  # the starting weights, before any resume
+            ref.load_state_dict(model.state_dict())
+        if args.bf16:
+            print("--bf16 is ignored under --dpo: the DPO step runs in "
+                  "float32, as the JAX package's")
+        step_fn = gan_steps.make_dpo_step(model, ref.to(device),
+                                          device=device)
+    else:
+        make_step = steps.make_flow_train_step if flow \
+            else steps.make_lm_train_step
+        step_fn = make_step(model, bf16=args.bf16, device=device)
     tx = schedule.make_optimizer(
         lr=tcfg.get("lr", 5e-5), warmup_steps=tcfg.get("warmup_steps", 500),
         scheduler=tcfg.get("scheduler", "constantlr"),
@@ -204,9 +235,11 @@ def main(argv=None):
     if start_step:
         print(f"resumed from step {start_step}")
 
+    keys = BATCH_KEYS["dpo" if args.dpo else args.model]
+
     def put(batch):
         return {k: torch.as_tensor(np.asarray(v)).to(device)
-                for k, v in batch.items() if k in BATCH_KEYS[args.model]}
+                for k, v in batch.items() if k in keys}
 
     def draws(batch, generator):
         return flow_mod.make_flow_draws(
@@ -223,7 +256,7 @@ def main(argv=None):
                             if line.strip()], **kw)
 
     source = data_list(args.train_data)
-    stages = build_stages(tcfg, tokenizer, args.model)
+    stages = build_stages(tcfg, tokenizer, args.model, dpo=args.dpo)
     cv_source = data_list(args.cv_data, shuffle=False) if args.cv_data \
         else None
     if flow:

@@ -4,19 +4,23 @@ stages.
 Port of the stages of minimax_speech_tpu/data/pipeline.py that the
 chains of cli/train.py run:
 
-  DataList -> individual_file_opener (wav + sidecars) -> tokenize ->
-  filter_lengths -> resample -> extract_reference_mel -> shuffle ->
-  sort_by_len -> dynamic_batch -> padding_llm (--model llm) or
-  padding_flow (--model flow) -> prefetch
+  DataList -> individual_file_opener (wav or mp3 + sidecars) ->
+  tokenize -> filter_lengths -> resample -> extract_reference_mel ->
+  shuffle -> sort_by_len -> dynamic_batch -> padding_llm (--model llm,
+  with the rejected plans under --dpo) or padding_flow (--model flow) ->
+  prefetch
 
-Stages are generator transformers, fn(iterable, **cfg) -> iterable of
-sample dicts (batches: lists of dicts, then dicts of numpy arrays). They
-draw from Python's `random` in the JAX package's order, so a run seeded
-the same way gives the same batches. mp3 sources are not ported yet
-(ROADMAP.md, queue 1, training slice) and raise.
+and the other openers: parquet_opener (parquet shards of
+cli/data_tools.py make_parquet) and data/native_loader.py's
+native_file_opener. Stages are generator transformers, fn(iterable,
+**cfg) -> iterable of sample dicts (batches: lists of dicts, then dicts
+of numpy arrays). They draw from Python's `random` in the JAX package's
+order, so a run seeded the same way gives the same batches.
 """
 from __future__ import annotations
 
+import io
+import logging
 import queue
 import random
 import threading
@@ -26,6 +30,7 @@ from typing import Callable, Iterable, Iterator
 
 import numpy as np
 
+from minimax_speech_torch.data import mp3 as mp3_mod
 from minimax_speech_torch.models import llm as llm_mod
 from minimax_speech_torch.ops import mel as mel_ops
 
@@ -77,10 +82,14 @@ def _load_pt(path: str) -> np.ndarray:
     return t.numpy() if hasattr(t, "numpy") else np.asarray(t)
 
 
+_SIDECAR_ERRORS = (OSError, ValueError, KeyError, IndexError)
+
+
 def attach_sidecars(sample: dict) -> Iterator[dict]:
     """Attach <stem>.txt, <stem>_fsq.* and <stem>_latent2x.* to a sample
     that already carries decoded audio, tokens and latents cut to a
-    common length; skip-and-log on error."""
+    common length, and an optional <stem>_fsq_reject.* (DPO's rejected
+    tokens) as reject_speech_token; skip-and-log on error."""
     try:
         stem = Path(sample["src"]).with_suffix("")
         sample["text"] = Path(str(stem) + ".txt").read_text().strip()
@@ -94,8 +103,13 @@ def attach_sidecars(sample: dict) -> Iterator[dict]:
         sample["speech_token"] = np.asarray(tok[:n], np.int32)
         sample["speech_latent"] = np.asarray(
             lat[: n * TOKEN_LATENT_RATIO], np.float32)
+        try:
+            sample["reject_speech_token"] = np.asarray(
+                _load_array(str(stem) + "_fsq_reject"), np.int32)
+        except _SIDECAR_ERRORS:
+            pass  # no reject: padding_llm(dpo=True) drops the sample
         yield sample
-    except (OSError, ValueError, KeyError, IndexError) as e:
+    except _SIDECAR_ERRORS as e:
         print(f"opener skip {sample.get('src')}: {e}")
 
 
@@ -115,19 +129,21 @@ def _expand_src(src: str) -> Iterator[str]:
 
 
 def _load_audio(path: str):
-    """(float32 mono audio in [-1, 1), sample rate) of a 16-bit wav."""
-    with open(path, "rb") as f:
-        head = f.read(4)
-    if head[:3] == b"ID3" or path.lower().endswith(".mp3"):
-        raise NotImplementedError(
-            f"{path}: mp3 decoding is not ported yet (ROADMAP.md, queue 1, "
-            "training slice)")
+    """(float32 mono audio in [-1, 1), sample rate) of a 16-bit wav (its
+    first channel) or an mp3 (data/mp3.py: channels averaged), told apart
+    by their content."""
+    if mp3_mod.looks_like_mp3(path):
+        return mp3_mod.decode_mp3(path)
     with wave.open(path) as w:
-        sr = w.getframerate()
-        raw = w.readframes(w.getnframes())
-        audio = np.frombuffer(raw, np.int16).astype(np.float32) / 32768.0
-        if w.getnchannels() > 1:
-            audio = audio.reshape(-1, w.getnchannels())[:, 0]
+        return _wav_audio(w)
+
+
+def _wav_audio(w: wave.Wave_read):
+    sr = w.getframerate()
+    raw = w.readframes(w.getnframes())
+    audio = np.frombuffer(raw, np.int16).astype(np.float32) / 32768.0
+    if w.getnchannels() > 1:
+        audio = audio.reshape(-1, w.getnchannels())[:, 0]
     return audio, sr
 
 
@@ -145,6 +161,29 @@ def individual_file_opener(data: Iterable[dict]) -> Iterator[dict]:
             item["audio"] = audio
             item["sample_rate"] = sr
             yield from attach_sidecars(item)
+
+
+def parquet_opener(data: Iterable[dict]) -> Iterator[dict]:
+    """Each item's `src` is a parquet shard; yields one sample per row,
+    its fields (utt, text, speech_token, ...) beside the item's, with
+    audio_data (wav bytes) decoded to audio and sample_rate. An
+    unreadable shard is skipped and logged. Needs pyarrow."""
+    import pyarrow.parquet as pq
+    for sample in data:
+        try:
+            rows = pq.read_table(sample["src"]).to_pylist()
+        except (OSError, ValueError) as e:  # Arrow's errors subclass these
+            print(f"parquet opener skip {sample.get('src')}: {e}")
+            continue
+        for row in rows:
+            out = {**sample, **row}
+            if "audio_data" in out:
+                with wave.open(io.BytesIO(out.pop("audio_data"))) as w:
+                    out["audio"], out["sample_rate"] = _wav_audio(w)
+            if "speech_token" in out:
+                out["speech_token"] = np.asarray(out["speech_token"],
+                                                 np.int32)
+            yield out
 
 
 def tokenize(data, tokenizer) -> Iterator[dict]:
@@ -166,6 +205,8 @@ def filter_lengths(data, max_length: int = 40960, min_length: int = 100,
             continue
         if len(s.get("speech_token", ())) == 0:
             continue
+        if "reject_speech_token" in s and len(s["reject_speech_token"]) == 0:
+            continue  # an empty rejected sequence cannot pair
         yield s
 
 
@@ -281,22 +322,42 @@ def padding_flow(batches, token_latent_ratio: int = TOKEN_LATENT_RATIO,
 
 def padding_llm(batches, mix_ratio=(5, 15), use_spk: bool = True,
                 bucket_multiple: int = 64, bistream_prob: float = 0.5,
-                eos: int = 6561, fill: int = 6563) -> Iterator[dict]:
+                dpo: bool = False, eos: int = 6561, fill: int = 6563
+                ) -> Iterator[dict]:
     """Stage-1 LM batch: the fixed-shape interleave plan (models/llm.py
     build_lm_plan) padded to a multiple of `bucket_multiple`, plus the
-    reference mels padded to a multiple of 32."""
+    reference mels padded to a multiple of 32. With dpo=True, samples
+    without reject_speech_token are dropped with a warning, the bucket
+    fits the longer of each sample's chosen and rejected plans, and the
+    rejected plans follow at the same pad under `_rej`-suffixed keys,
+    with the chosen plans' bistream flags."""
     for batch in batches:
+        if dpo:
+            kept = [s for s in batch if "reject_speech_token" in s]
+            if len(kept) < len(batch):
+                logging.warning(
+                    "padding_llm(dpo): dropping %d/%d samples missing "
+                    "reject_speech_token", len(batch) - len(kept), len(batch))
+            if not kept:
+                continue
+            batch = kept
         flags = [random.random() < bistream_prob for _ in batch]
 
-        def plan_for(pad_to=None):
+        def plan_for(token_key, pad_to=None):
             return llm_mod.build_lm_plan(
                 [s["text_token"] for s in batch],
-                [s["speech_token"] for s in batch], mix_ratio=mix_ratio,
+                [s[token_key] for s in batch], mix_ratio=mix_ratio,
                 use_spk=use_spk, bistream_flags=flags, pad_to=pad_to, eos=eos,
                 fill=fill)
 
-        longest = int(plan_for()["seq_len"].max())
-        out = plan_for(_bucket(longest, bucket_multiple))
+        keys = ("speech_token", "reject_speech_token") if dpo \
+            else ("speech_token",)
+        pad = _bucket(max(int(plan_for(k)["seq_len"].max()) for k in keys),
+                      bucket_multiple)
+        out = plan_for("speech_token", pad)
+        if dpo:
+            out.update({k + "_rej": v for k, v in
+                        plan_for("reject_speech_token", pad).items()})
         if "reference_mels" in batch[0]:
             out.update(_pad_reference_mels(batch, 32))
         yield out

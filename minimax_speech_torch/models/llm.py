@@ -5,7 +5,8 @@ host-built integer plan of source type + token id per position,
 materialized with three gathers and a select), speaker conditioning
 (multi-crop averaged, or an external x-vector), the training forward
 (label-smoothed CE and accuracy over the plan's targets) with the host
-plan builder `build_lm_plan`, prefill into a preallocated KV cache, and
+plan builder `build_lm_plan`, the targets' summed log-probability for
+DPO (`sequence_logp`), prefill into a preallocated KV cache, and
 the RAS decode loop of `generate` with pregenerated noise; for serving,
 decode steps with a cache slot per row (`decode_step_rows`) and block
 appends mid-decode (`extend`), and the sampling step the serving
@@ -129,6 +130,20 @@ class SpeechLM(nn.Module):
         loss = losses.label_smoothing_ce(logits, target, self.cfg.lsm_weight,
                                          self.cfg.length_normalized_loss)
         return loss, losses.accuracy(logits, target)
+
+    def sequence_logp(self, src_type, tok_id, target, seq_len, spk_emb):
+        """The training forward's summed log-probability of each plan's
+        targets (B,), for DPO: log-softmax over the speech vocabulary in
+        float32, summed where target != IGNORE_ID."""
+        emb = self.embed_plan(src_type, tok_id, spk_emb)
+        b, t = src_type.shape
+        positions = torch.arange(t, device=emb.device)[None].expand(b, t)
+        hidden = self.llm(emb, positions, None, lengths=seq_len)
+        logp = torch.log_softmax(self.llm_decoder(hidden).float(), dim=-1)
+        valid = target != IGNORE_ID
+        tgt = torch.where(valid, target, torch.zeros_like(target)).long()
+        tok_logp = torch.gather(logp, -1, tgt[..., None])[..., 0]
+        return (tok_logp * valid).sum(dim=-1)
 
     def prefill(self, emb, pad, positions, cache):
         """Run the prompt through the LM, filling cache slots [0, P).

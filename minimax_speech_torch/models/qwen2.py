@@ -9,10 +9,14 @@ decouple and padded prompts need no re-packing. Training (no cache,
 `lengths` given, no bias): every attention call goes through K2
 (kernels/splash.py), causal with segment padding, at any T; on the CPU
 through K2's plain version. Valid rows see what the JAX package's XLA
-route shows them; pad rows see only pads, which no loss reads.
+route shows them; pad rows see only pads, which no loss reads. With
+`remat`, each layer of the training path runs under
+torch.utils.checkpoint, keeping its input only ("none") or also its
+projections' outputs ("dots"); the decode path (a cache) ignores it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -20,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from minimax_speech_torch.kernels import splash
 from minimax_speech_torch.ops import rope as rope_ops
@@ -38,14 +44,27 @@ class Qwen2Config:
     rms_eps: float = 1e-6
     quantized: bool = False  # int8 projection kernels (QuantDense)
     act_quant: bool = True   # + per-row int8 activations (W8A8)
-    remat: bool = False      # per-layer activation checkpointing: not yet
+    remat: bool = False      # per-layer checkpointing on the training path
+    # what a checkpointed layer keeps for the backward: "none" only its
+    # input (the whole layer is recomputed), "dots" also the outputs of
+    # its seven projections (REMAT_POLICIES)
     remat_policy: str = "dots"
 
-    def __post_init__(self):
-        if self.remat or self.remat_policy != "dots":
-            raise NotImplementedError(
-                "Qwen2Config.remat / remat_policy (per-layer checkpointing) "
-                "is not ported yet: ROADMAP.md, queue 1, training slice")
+
+REMAT_POLICIES = ("none", "dots")
+# the products without batch dims, as the projections lower to them: what
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps
+_NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" remat policy for torch.utils.checkpoint's selective
+    checkpointing: keep the projections' products, recompute everything
+    else (the batched products, norms, RoPE, SiLU and K2, whose kernels
+    launch outside aten and so are never cached)."""
+    if op in _NO_BATCH_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
@@ -291,12 +310,34 @@ class Qwen2Model(nn.Module):
         K2. Returns the normed hidden states (B, T, C)."""
         if attn_bias is None and (lengths is None or cache is not None):
             raise ValueError("need attn_bias, or lengths without a cache")
+        run = self._remat_layer() if cache is None else None
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             layer_cache = None if cache is None else (cache[0][i], cache[1][i])
-            x = layer(x, positions, attn_bias, layer_cache, cache_offset,
-                      lengths)
+            args = (x, positions, attn_bias, layer_cache, cache_offset,
+                    lengths)
+            x = layer(*args) if run is None else run(layer, *args)
         return self.norm(x)
+
+    def _remat_layer(self):
+        """With cfg.remat, the call that runs a layer under
+        torch.utils.checkpoint (non-reentrant), keeping what
+        cfg.remat_policy says; None without remat or without grad, where
+        nothing is saved."""
+        c = self.cfg
+        if not c.remat:
+            return None
+        if c.remat_policy not in REMAT_POLICIES:
+            # a typo silently running another policy would void any A/B
+            raise ValueError(f"remat_policy={c.remat_policy!r} not in "
+                             f"{REMAT_POLICIES}")
+        if not torch.is_grad_enabled():
+            return None
+        kw = {}
+        if c.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, dots_policy)
+        return functools.partial(checkpoint, use_reentrant=False, **kw)
 
 
 def make_cache(cfg: Qwen2Config, batch: int, max_len: int,

@@ -63,6 +63,15 @@ def grad_norms_by_component(named_grads, groups: dict[str, str]) -> dict:
     return out
 
 
+def speaker_of(model, batch: dict):
+    """The LM's speaker conditioning (B, C): the batch's reference mels
+    (+ lengths) through the speaker encoder, or its spk_emb."""
+    if "reference_mel" in batch:
+        return model.embed_speaker(batch["reference_mel"],
+                                   _reference_mask(batch))
+    return batch["spk_emb"]
+
+
 def _reference_mask(batch: dict):
     """The reference mels' (B, T) frame mask, or None without lengths."""
     if "reference_mel_len" not in batch:
@@ -84,13 +93,8 @@ class _LMLoss(nn.Module):
 
     def forward(self, batch: dict):
         m = self.model
-        if "reference_mel" in batch:
-            spk = m.embed_speaker(batch["reference_mel"],
-                                  _reference_mask(batch))
-        else:
-            spk = batch["spk_emb"]
         return m(batch["src_type"], batch["tok_id"], batch["target"],
-                 batch["seq_len"], spk)
+                 batch["seq_len"], speaker_of(m, batch))
 
 
 class _FlowLoss(nn.Module):
@@ -186,15 +190,23 @@ def make_flow_train_step(model, bf16: bool = False, device=None,
     return step
 
 
-def _apply(state: TrainState, loss, names, groups) -> dict:
-    """Backward, the optimizer's update and one step on the counter;
-    returns loss, grad_norm and grad_norm/<component>."""
+def backward_and_update(state: TrainState, loss) -> list:
+    """Backward of `loss` into the state's parameters, the optimizer's
+    update (clip, accumulation, AdamW; it leaves the gradients as they
+    are) and one step on the counter. Returns the gradients, zeros where
+    a parameter gets none."""
     params = state.params()
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
-               **grad_norms_by_component(list(zip(names, grads)), groups)}
     state.optimizer.apply(params, grads, state.opt_state)
     state.step += 1
-    return metrics
+    return grads
+
+
+def _apply(state: TrainState, loss, names, groups) -> dict:
+    """backward_and_update; returns loss, grad_norm and
+    grad_norm/<component>."""
+    grads = backward_and_update(state, loss)
+    return {"loss": loss.detach(), "grad_norm": global_norm(grads),
+            **grad_norms_by_component(list(zip(names, grads)), groups)}

@@ -1,13 +1,15 @@
-"""The LM's training losses: label-smoothed cross-entropy and accuracy.
+"""The LM's training losses: label-smoothed cross-entropy, accuracy and
+DPO.
 
-Port of the LM half of minimax_speech_tpu/utils/losses.py (the DPO and
-GAN losses wait for their slices).
+Port of the LM half of minimax_speech_tpu/utils/losses.py (the GAN losses
+wait for their slice).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 IGNORE_ID = -1
 
@@ -45,3 +47,22 @@ def accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     valid = targets != IGNORE_ID
     correct = (logits.argmax(dim=-1) == targets) & valid
     return correct.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def dpo_loss(chosen_logp: torch.Tensor, rejected_logp: torch.Tensor,
+             ref_chosen_logp: torch.Tensor, ref_rejected_logp: torch.Tensor,
+             beta: float = 0.01, label_smoothing: float = 0.0,
+             ipo: bool = False):
+    """Sigmoid DPO (conservative with label_smoothing > 0), or IPO, over
+    per-sequence log-probs (B,). Returns (loss, chosen_reward,
+    rejected_reward), the rewards beta times the policy-over-reference
+    log ratios (B,)."""
+    chosen_ratio = chosen_logp - ref_chosen_logp
+    rejected_ratio = rejected_logp - ref_rejected_logp
+    diff = chosen_ratio - rejected_ratio
+    if ipo:
+        loss = ((diff - 1.0 / (2 * beta)) ** 2).mean()
+    else:
+        loss = (-F.logsigmoid(beta * diff) * (1 - label_smoothing)
+                - F.logsigmoid(-beta * diff) * label_smoothing).mean()
+    return loss, beta * chosen_ratio, beta * rejected_ratio

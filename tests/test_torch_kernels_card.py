@@ -106,3 +106,42 @@ def test_k2_matches_plain_on_card(dtype, mode, shape, kv_len):
                                          tols):
         torch.testing.assert_close(a.float() - shift, r.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "dots"])
+def test_k2_under_remat_on_card(policy):
+    """A 2-layer Qwen2 training forward and backward on the card with
+    per-layer remat against the same weights without it: output and every
+    parameter's gradient within 1e-6 of their largest element (the
+    recompute repeats the same float32 work; TF32 off), and K2's forward
+    counter counts each layer's recompute (2 launches per layer, against
+    1 without remat) while the backward launches once per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from minimax_speech_torch.models import qwen2 as t_qwen2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    geo = dict(vocab_size=50, hidden_size=896, n_layers=2, n_heads=14,
+               n_kv_heads=2, head_dim=64, intermediate_size=4864)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((2, 300, 896), generator=g, device="cuda") * 0.3
+    pos = torch.arange(300, device="cuda")[None].expand(2, 300)
+    lens = torch.tensor([300, 171], device="cuda", dtype=torch.int32)
+    runs = {}
+    for mode in ("off", policy):
+        torch.manual_seed(0)
+        model = t_qwen2.Qwen2Model(t_qwen2.Qwen2Config(
+            **geo, remat=mode != "off", remat_policy=policy)).cuda()
+        t_sp.launches.update(forward=0, backward=0)
+        out = model(x, pos, None, lengths=lens)
+        grads = torch.autograd.grad(out.square().mean(),
+                                    list(model.parameters()))
+        torch.cuda.synchronize()
+        runs[mode] = (out.detach(), grads, dict(t_sp.launches))
+    (out, grads, n), (out_r, grads_r, n_r) = runs["off"], runs[policy]
+    assert n == {"forward": 2, "backward": 2}
+    assert n_r == {"forward": 4, "backward": 2}
+    for a, b in zip((out, *grads), (out_r, *grads_r)):
+        torch.testing.assert_close(b, a, rtol=0,
+                                   atol=1e-6 * float(a.abs().max()))

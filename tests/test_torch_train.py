@@ -143,11 +143,159 @@ def test_qwen2_training_forward_and_grads(rng, route):
                                    err_msg="/".join(path))
 
 
-def test_remat_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_qwen2.Qwen2Config(remat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_qwen2.Qwen2Config(remat_policy="none")
+def _remat(lm_cfg, mode: str):
+    """lm_cfg with remat off ("off") or on under policy `mode`."""
+    import dataclasses
+    return dataclasses.replace(lm_cfg, qwen=dataclasses.replace(
+        lm_cfg.qwen, remat=mode != "off",
+        remat_policy="dots" if mode == "off" else mode))
+
+
+def _lm_grads(port, batch):
+    """(loss, {flax path: gradient}) of the port's LM loss."""
+    paths = list(t_io._params_with_paths(port))
+    loss, _ = t_steps.make_lm_loss_fn(port)(_torch_batch(batch))
+    grads = torch.autograd.grad(loss, [p for _, p, _, _ in paths],
+                                allow_unused=True)
+    return float(loss.detach()), {
+        path: to_flax((torch.zeros_like(p) if g is None else g).numpy())
+        for (path, p, _, to_flax), g in zip(paths, grads)}
+
+
+@pytest.fixture(scope="module")
+def remat_ref(lm_weights):
+    """JAX's remat-off loss and gradients, and the port's remat-off
+    gradients, on one batch."""
+    model, variables, pcfg = lm_weights
+    batch = _lm_batch(7)
+    jloss = j_steps.make_lm_loss_fn(model)
+    (loss, _), grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        variables["params"], {k: jnp.asarray(v) for k, v in batch.items()})
+    port = t_io.load_flax_params(t_llm.SpeechLM(pcfg.lm), variables)
+    return batch, float(loss), t_io._flatten(grads), _lm_grads(port, batch)[1]
+
+
+@pytest.mark.parametrize("mode", ["off", "none", "dots"])
+def test_remat_matches_jax_and_remat_off(lm_weights, remat_ref, mode):
+    """The LM loss under each remat mode against JAX's remat-off loss
+    (1e-5 relative) and gradients (each leaf within 1e-4 of its largest
+    element, as the flow step holds them), and its gradients against the
+    port's remat-off ones within 1e-6 of each leaf's largest (the
+    recompute repeats the same float32 arithmetic)."""
+    _, variables, pcfg = lm_weights
+    batch, jloss, jgrads, off = remat_ref
+    port = t_io.load_flax_params(t_llm.SpeechLM(_remat(pcfg.lm, mode)),
+                                 variables)
+    loss, grads = _lm_grads(port, batch)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    assert grads.keys() == jgrads.keys() == off.keys()
+    for path, g in grads.items():
+        j = np.asarray(jgrads[path])
+        name = "/".join(path)
+        np.testing.assert_allclose(g, j, rtol=0, atol=1e-4 * np.abs(j).max(),
+                                   err_msg=name)
+        np.testing.assert_allclose(g, off[path], rtol=0,
+                                   atol=1e-6 * np.abs(off[path]).max(),
+                                   err_msg=name)
+
+
+def test_remat_policy_typo_raises():
+    """A misspelled policy fails loudly on the training path, as JAX's
+    (tests/test_training.py), rather than running another policy."""
+    model = t_qwen2.Qwen2Model(t_qwen2.Qwen2Config(
+        **QWEN, remat=True, remat_policy="dot"))
+    x = torch.zeros(1, 4, 128)
+    with pytest.raises(ValueError, match="remat_policy"):
+        model(x, torch.arange(4)[None], None, lengths=torch.tensor([4]))
+
+
+def _qwen_inputs(rng, t=32):
+    x = torch.as_tensor(rng.standard_normal((2, t, 128)).astype(np.float32))
+    return x, torch.arange(t)[None].expand(2, t), torch.tensor([t, 20])
+
+
+def test_dots_policy_keeps_the_seven_projections(rng, monkeypatch):
+    """On the first pass the "dots" policy marks exactly the seven
+    projection products of each layer MUST_SAVE (q, k, v with bias as
+    addmm; o, gate, up, down as mm) and nothing else; the recompute
+    (ctx.is_recompute) is left out of the count."""
+    from collections import Counter
+
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    decisions = Counter()
+
+    def counting(ctx, op, *args, **kwargs):
+        policy = dots(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            decisions[str(op), policy == CheckpointPolicy.MUST_SAVE] += 1
+        return policy
+
+    dots = t_qwen2.dots_policy
+    monkeypatch.setattr(t_qwen2, "dots_policy", counting)
+    model = t_qwen2.Qwen2Model(t_qwen2.Qwen2Config(**QWEN, remat=True))
+    x, pos, lengths = _qwen_inputs(rng)
+    out = model(x, pos, None, lengths=lengths)
+    torch.autograd.grad(out.square().sum(), list(model.parameters()))
+    saved = {op: n for (op, keep), n in decisions.items() if keep}
+    assert saved == {"aten.addmm.default": 3 * QWEN["n_layers"],
+                     "aten.mm.default": 4 * QWEN["n_layers"]}
+    assert sum(n for (_, keep), n in decisions.items() if not keep) > 0
+
+
+def test_remat_saves_far_fewer_activation_bytes(rng):
+    """The bytes autograd saves for the backward of the training forward,
+    counted by saved_tensors_hooks: with remat, a checkpointed layer
+    saves its input only as seen from outside (what selective
+    checkpointing caches is not seen there), so both modes save under a
+    quarter of remat-off's; "none" against "dots" is told apart by the
+    policy count above and by peak memory on the card."""
+    x, pos, lengths = _qwen_inputs(rng, t=64)
+    saved = {}
+    for mode in ("off", "none", "dots"):
+        cfg = t_qwen2.Qwen2Config(**QWEN, remat=mode != "off",
+                                  remat_policy="dots" if mode == "off"
+                                  else mode)
+        model = t_qwen2.Qwen2Model(cfg)
+        n = [0]
+
+        def pack(t, n=n):
+            n[0] += t.numel() * t.element_size()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            model(x.requires_grad_(), pos, None, lengths=lengths)
+        saved[mode] = n[0]
+    assert saved["none"] < saved["off"] / 4, saved
+    assert saved["dots"] < saved["off"] / 4, saved
+
+
+def test_decode_with_a_cache_ignores_remat(rng, monkeypatch):
+    """Prefill and a decode step through a cache run the plain layers
+    under remat, grad on or not: no checkpoint call, outputs equal to the
+    remat-off model's."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("checkpoint called on the cache path")
+
+    monkeypatch.setattr(t_qwen2, "checkpoint", refuse)
+    x = torch.as_tensor(rng.standard_normal((1, 5, 128)).astype(np.float32))
+    outs = {}
+    for mode in ("off", "dots"):
+        torch.manual_seed(0)
+        cfg = t_qwen2.Qwen2Config(**QWEN, remat=mode != "off")
+        model = t_qwen2.Qwen2Model(cfg)
+        cache = t_qwen2.make_cache(cfg, 1, 16)
+        pad = torch.ones(1, 5, dtype=torch.bool)
+        bias = torch.cat([t_qwen2.causal_bias(pad),
+                          torch.full((1, 1, 5, 11), -1e10)], dim=-1)
+        h = model(x, torch.arange(5)[None], bias, cache, 0)
+        valid = torch.zeros(1, 16, dtype=torch.bool)
+        valid[:, :6] = True
+        h1 = model(x[:, -1:], torch.tensor([[5]]), t_qwen2.cache_bias(valid),
+                   cache, 5)
+        outs[mode] = (h.detach(), h1.detach())
+    for a, b in zip(outs["off"], outs["dots"]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
 # -- the train step ---------------------------------------------------------

@@ -77,19 +77,23 @@ def test_byte_tokenizer_and_unported_paths(tmp_path):
     assert ours.decode(ours.encode(text)) == text
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_fe.get_tokenizer("some/qwen")
-    mp3 = tmp_path / "a.mp3"
+    mp3 = tmp_path / "a.mp3"  # an ID3 tag and no frames: skipped, logged
     mp3.write_bytes(b"ID3\x04" + bytes(32))
-    with pytest.raises(NotImplementedError, match="mp3"):
-        list(t_dp.individual_file_opener([{"src": str(mp3)}]))
-    for extra in (["--model", "flow", "--dpo"], ["--model", "llm", "--dpo"],
-                  ["--model", "llm", "--distributed"],
+    assert list(t_dp.individual_file_opener([{"src": str(mp3)}])) == []
+
+    def args(*extra):
+        return t_cli.parse_args([*extra, "--train_data", "x",
+                                 "--model_dir", "y"])
+
+    for extra in (["--model", "llm", "--distributed"],
                   ["--model", "flow", "--distributed"],
                   ["--model", "llm", "--tp", "2"],
                   ["--model", "flow", "--dp", "2"]):
-        args = t_cli.parse_args(extra + ["--train_data", "x",
-                                         "--model_dir", "y"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_cli.check_ported(args)
+            t_cli.check_ported(args(*extra))
+    t_cli.check_ported(args("--model", "llm", "--dpo"))
+    with pytest.raises(ValueError, match="--model llm"):
+        t_cli.check_ported(args("--model", "flow", "--dpo"))
 
 
 def _cli_args(lst, model_dir, *extra, model="llm"):
@@ -207,6 +211,104 @@ def test_flow_cli_epoch_checkpoint_resume_and_export(tmp_path, rng):
     np.testing.assert_allclose(float(loss), float(ref), rtol=1e-5)
 
 
+def dpo_corpus(tmp_path, rng, n=6):
+    """make_corpus with a <stem>_fsq_reject.npy beside every wav but the
+    last (its sample is dropped under --dpo), of other lengths than the
+    chosen tokens."""
+    lst = make_corpus(tmp_path, rng, n=n)
+    for wav in lst.read_text().splitlines()[:-1]:
+        n_tok = len(np.load(wav[:-4] + "_fsq.npy"))
+        np.save(wav[:-4] + "_fsq_reject.npy", rng.integers(
+            0, 6561, n_tok + int(rng.integers(-9, 10))).astype(np.int32))
+    return lst
+
+
+def test_dpo_batches_match_jax(tmp_path, rng):
+    """The --dpo chain (build_stages(..., dpo=True)) against JAX's: the
+    same batches under one random.seed, chosen and _rej plans identical,
+    reference mels to 1e-4, the sample without a reject gone."""
+    from minimax_speech_tpu.cli import train as j_cli
+
+    lst = dpo_corpus(tmp_path, rng)
+    tcfg = {"max_frames_in_batch": 200, "bistream_prob": 0.5}
+    items = [{"src": line} for line in lst.read_text().splitlines()]
+    out = {}
+    for name, cli, dp, tok in (
+            ("jax", j_cli, j_dp, j_fe.get_tokenizer(None)),
+            ("port", t_cli, t_dp, t_fe.get_tokenizer(None))):
+        source = dp.DataList(items)
+        source.set_epoch(2)
+        random.seed(5)
+        out[name] = list(dp.build_dataset(source, cli.build_stages(
+            tcfg, tok, "llm", dpo=True)))
+    assert len(out["port"]) == len(out["jax"]) > 1
+    assert sum(len(b["seq_len"]) for b in out["port"]) == 5
+    for ours, ref in zip(out["port"], out["jax"]):
+        assert ours.keys() == ref.keys()
+        assert "tok_id_rej" in ours
+        for k in ref:
+            if k == "reference_mel":
+                np.testing.assert_allclose(ours[k], ref[k], atol=1e-4)
+            else:
+                np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+
+
+def test_dpo_cli_epoch_resume_and_export(tmp_path, rng):
+    """--dpo --ref_ckpt for one epoch with the policy under remat
+    (--override model.lm.qwen.remat=true): the four dpo/* metrics in
+    every step's row, finite, the rewards not 0 (the reference differs
+    from the policy); a second call resumes at the saved step; the
+    --export_npz loads in JAX's SpeechLM and gives the port's sequence
+    log-probs (1e-5 relative)."""
+    from minimax_speech_torch.models import llm as t_llm
+    from minimax_speech_torch.utils import params_io as t_io
+    from minimax_speech_tpu import config as j_cfg
+    from minimax_speech_tpu.models import llm as j_llm
+    from minimax_speech_tpu.utils.params_io import load_params
+
+    from minimax_speech_torch import config as t_cfg
+
+    lst = dpo_corpus(tmp_path, rng)
+    lm_cfg = t_cfg.build_tts_config(
+        t_cfg.load_yaml("configs/tiny.yaml")["model"]).lm
+    ref_npz = tmp_path / "ref.npz"
+    t_io.save_params(str(ref_npz), t_io.init_params(
+        t_llm.SpeechLM(lm_cfg), torch.Generator().manual_seed(9)))
+    model_dir = tmp_path / "exp"
+    npz = tmp_path / "policy.npz"
+    argv = _cli_args(lst, model_dir, "--dpo", "--ref_ckpt", str(ref_npz),
+                     "--override", "model.lm.qwen.remat=true")
+    state = t_cli.main(argv + ["--export_npz", str(npz)])
+    assert state.module.cfg.qwen.remat
+    rows = [json.loads(line) for line in
+            (model_dir / "llm_metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in rows if "dpo/loss" in r]
+    keys = {"dpo/loss", "dpo/chosen_reward", "dpo/rejected_reward",
+            "dpo/reward_acc"}
+    assert len(steps) == state.step >= 2
+    assert all(keys <= r.keys() and "loss" not in r for r in steps)
+    assert all(np.isfinite([r[k] for k in keys]).all() for r in steps)
+    assert any(r["dpo/chosen_reward"] != 0 for r in steps)
+
+    again = t_cli.main(argv)
+    assert again.step == state.step
+    for a, b in zip(again.module.parameters(), state.module.parameters()):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+    jlm = j_cfg.build_tts_config(
+        j_cfg.load_yaml("configs/tiny.yaml")["model"]).lm
+    plan = t_llm.build_lm_plan([np.arange(1, 9)], [np.arange(30)], pad_to=64)
+    spk = np.full((1, 32), 0.1, np.float32)
+    ref = j_llm.SpeechLM(jlm).apply(
+        load_params(str(npz)), *(jnp.asarray(plan[k]) for k in (
+            "src_type", "tok_id", "target", "seq_len")), jnp.asarray(spk),
+        method=j_llm.SpeechLM.sequence_logp)
+    with torch.no_grad():
+        ours = state.module.sequence_logp(*(torch.as_tensor(plan[k]) for k in (
+            "src_type", "tok_id", "target", "seq_len")), torch.as_tensor(spk))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5)
+
+
 def test_executor_draws_follow_the_global_step(tmp_path):
     """A step that takes draws gets them from a generator seeded with
     (seed << 32) | global step: a run resumed at step 1 draws for it what
@@ -269,7 +371,8 @@ def test_run_key_hashes_data_and_flags(tmp_path):
     stats = {"mean": [0.0] * 80, "std": [2.0] * 80}
     assert len({base, key(b), key(a, "--bf16"), key(a, "--dpo"),
                 key(a, "--init_ckpt", "w.npz"), key(a, model="flow"),
-                key(a, model="flow", stats=stats)}) == 7
+                key(a, model="flow", stats=stats),
+                key(a, "--dpo", "--ref_ckpt", "r.npz")}) == 8
 
 
 def test_resume_rolls_back_whole_epochs(tmp_path):
