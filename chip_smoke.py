@@ -48,22 +48,23 @@ a line; any failure ends the run with a non-zero exit:
      second call that resumes at the saved step;
   9. LM training at reduced depth (2 layers) on the card and on the CPU
      with the same weights and batch: loss, accuracy, grad norm and the
-     parameters after 3 steps within stated tolerances;
+     parameters after 2 steps within stated tolerances;
  10. the LM's int8 product (torch._int_mm, rows padded past 16) for each
      projection shape at M=1 and M=128: the int32 accumulator equals the
      CPU's exactly; its time beside a bf16 matmul of the same shape;
- 11. the synthesis CLI's paths at full width with phase 4's LM, K1's
-     count set to 0 before each and read after: the unfused
-     `synthesize`, a chunked StreamingSession (a warm-up utterance, then
-     a timed one: time to first chunk, total, chunks, audio, K1 launches
-     in the prefill and per hop) and a non-chunked one (K1's chunk-50
+ 11. the synthesis CLI's paths at full width with phase 4's LM cut to
+     PATH_LM_LAYERS layers, K1's count set to 0 before each and read
+     after: the unfused `synthesize` (also the warm-up), a chunked
+     StreamingSession (time to first chunk, total, chunks, audio, K1
+     launches in the prefill and per hop) and a non-chunked one (K1's
+     chunk-50
      mode per hop); then K1, its plain version and SDPA timed at the
      streaming prefill's shape and at the largest chunk-50 hop's;
  12. streaming at reduced depth: the card's chunked session against its
      own unit-grid pass (flow_inference_unit_grid) within the JAX test's
      limit, and the streamed PCM of the card against the CPU's;
- 13. cli/synthesize.main at full width, unfused and --stream, each
-     writing a wav;
+ 13. cli/synthesize.main at full width (PATH_LM_LAYERS LM layers),
+     unfused and --stream, each writing a wav;
  15. serving at full width, phase 4's LM: a BatchSynthesizer call of 4
      requests with ragged prompts (2-3.5 s) and texts (50-100 tokens),
      then the longest alone; tokens, lengths, K1's launches per call
@@ -116,11 +117,13 @@ a line; any failure ends the run with a non-zero exit:
      card vs CPU: each side's harmonic phase against a float64 cumsum,
      the decode of one shared source, the whole forward; its time per
      call (CUDA events) and audio seconds per second;
- 24. mel mode at full width with phase 4's LM: synthesize_fused and the
+ 24. mel mode at full width with phase 4's LM cut to PATH_LM_LAYERS
+     layers: synthesize_fused and the
      unfused synthesize (total_s, rtf, HiFT's seconds, 560 K1 launches
      per flow call), a chunked StreamingSession (time to first chunk,
      seconds per hop with HiFT's full-prefix decode, K1 per path);
- 25. mel-mode serving at full width: one BatchSynthesizer call of 4
+ 25. mel-mode serving at full width (phase 24's pipeline): one
+     BatchSynthesizer call of 4
      requests (560 K1 launches), then cli/synthesize.main --override
      model.output_type=mel writing a 24 kHz wav;
  26. phase 5's reduced depth in mel mode with phase 23's HiFT, card vs
@@ -132,37 +135,71 @@ a line; any failure ends the run with a non-zero exit:
      pipeline loaded from it holds the converter's weights bit for bit
      and gives the token ids of one built from them in memory, and its
      PCM within PCM_TOL_LSB;
- 28. phase 7's LM step with per-layer remat off, "dots" and "none"
+ 28. phase 7's LM step with per-layer remat "dots" and "none"
      (torch.utils.checkpoint; K2 runs inside the recompute): 2 warm-up
      and 3 timed steps each (step_s, peak memory, a profiled step's busy
-     time); K2 launches per step asserted per mode, 24 + 24 off and
-     48 + 24 with remat (the recompute launches each layer's forward
-     again), K1 none; the first-step gradients of each remat mode within
-     REMAT_GRAD_RTOL of the remat-off step's, per leaf;
+     time) beside phase 7's remat-off numbers (the same step); K2
+     launches per step asserted per mode, 48 + 24 (the recompute launches
+     each layer's forward again), K1 none; the first-step gradients of
+     each remat mode within REMAT_GRAD_RTOL of a remat-off first step's,
+     per leaf;
  29. DPO (train/gan_steps.make_dpo_step) at full width: phase 7's LM as
      the policy, a jittered copy as the frozen reference, 8 chosen and 8
-     rejected plans (other speech lengths) padded to 512; 2 warm-up and 5
+     rejected plans (other speech lengths) padded to 512; 2 warm-up and 3
      timed steps and a profiled one with remat off, then with "dots"; K2
      launches per step asserted, 96 + 48 off and 144 + 48 with "dots"
-     (four forwards, two under grad, recomputed), K1 none; over 10 steps
-     the loss falls and the reward accuracy does not;
+     (four forwards, two under grad, recomputed), K1 none; over the first
+     5 steps the loss falls and the reward accuracy does not;
  30. DPO at 2 layers, card (remat off, then "dots") against the CPU with
-     the same weights, reference and batch (4 of phase 29's 8 pairs): the first step's sequence
-     log-probs and every step's rewards, then phase 9's checks on the
-     loss, the reward accuracy, every leaf's first-step gradient and the
-     parameters after 3 steps;
+     the same weights, reference and batch (4 of phase 29's 8 pairs): the
+     first step's sequence log-probs and every step's rewards, then phase
+     9's checks on the loss, the reward accuracy, every leaf's first-step
+     gradient and the parameters after 2 steps;
  31. cli/train.main --model llm --dpo --ref_ckpt (phase 29's reference
      weights as a .npz) at full width for one epoch on phase 8's
      corpus with a <stem>_fsq_reject.npy beside every wav: the four
-     dpo/* metrics in every row, a resume, K2's launches per step; then
+     dpo/* metrics in every row, K2's launches per step (phase 8 holds
+     the resume); then
      the plain LM with --override model.lm.qwen.remat=true (policy
      "dots") for one epoch, K2's launches per step.
+ 32. training over ranks (one process per rank): first world size 1
+     through the distributed code on NCCL (while the gang's ranks start,
+     before their first job), phase 7's first-step loss and every leaf's
+     gradient within REMAT_GRAD_RTOL of the one-process step's; then two
+     ranks (utils/gang.Gang: two cards over NCCL, or one card shared over
+     gloo, named in the line) at tp = 2 and at dp = 2 (4 of the 8 plans a
+     rank), each against rank 0's one-process step on the whole batch:
+     phase 9's limits on loss, accuracy and grad norms over DIST_STEPS
+     steps, every leaf's gathered first-step gradient and the parameters
+     after the steps; K2 24 + 24 launches per step on each rank, on its
+     heads or rows; the DPO step the same way at tp = 2 (PATH_LM_LAYERS
+     layers, 4 of phase 29's pairs, 2 steps; phase 30's metrics; K2
+     4 x 6 + 2 x 6 per step on each rank); each rank's step_s, peak
+     memory and the share of a step in its collectives, timed on the
+     host with the card synchronised around each (timed_collectives),
+     what those syncs add to the step, and the LM's last step under the
+     profiler (traced_collectives: the card's copies through the host
+     and the trace's collective events); K2 at each rank's shapes,
+     (8, 7, 512, 64) and (4, 14, 512, 64), against its plain version and
+     timed beside SDPA and the bound;
+ 33. the same for the flow (phase 20's batch and draws, contrastive FM
+     and immiscible noise on, each rank taking its rows of the global
+     draws) at tp = 2 and dp = 2 over FLOW_DIST_STEPS steps, at phase
+     22's per-leaf limit; K2 56 + 56 launches per step on each rank; K2
+     at (8, 4, 512, 64) and (4, 8, 512, 64) as in phase 32;
+ 34. python -m minimax_speech_torch.cli.launch --nproc 2 with cli/train.py
+     --model llm --tp 2 at full width (LAUNCH_LM_LAYERS layers) for one
+     epoch of phase 8's corpus (static batches of 8 plans padded to
+     512), then a second gang that
+     resumes at the saved step and writes --export_npz, which the port
+     loads; K2's launches per step per rank asserted.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -183,7 +220,16 @@ SERVE_TOKENS = 100
 SERVE_SPECS = [(2.0, 6), (2.5, 8), (3.0, 10), (3.5, 12), (2.2, 7), (2.8, 9)]
 PROMPT_TEXT_LEN = 4
 PROMPT_SECONDS = 3.0
-TIMED_RUNS = 3
+TIMED_RUNS = 2
+# the LM depth of the phases whose subject is the flow, HiFT or a CLI's
+# plumbing, not the LM's decode (11, 13, 24 and 25): full width, 6 of the
+# 24 layers, since the host-bound decode costs about 64 ms a token per
+# 24 layers
+PATH_LM_LAYERS = 6
+# phase 34's LM depth: the launcher's two gangs start, initialise, save,
+# restore and export the model, whose text embedding (136 M parameters)
+# is most of its bytes at 2 layers
+LAUNCH_LM_LAYERS = 2
 # K1's comparison tolerances, |err| <= atol + rtol * |plain|: fp32 is the
 # same arithmetic in another summation order; bf16 outputs are both an
 # fp32 result rounded to bf16, so they may differ by one bf16 ulp (rtol
@@ -263,6 +309,10 @@ DPO_BETA, DPO_JITTER = 0.01, 0.01
 # phase 30 runs 4 of phase 29's 8 pairs: the CPU's four forwards and two
 # backwards per step set the phase's time
 DPO_CROSS_BATCH = 4
+# phases 32 and 33: steps of each two-rank run against one process. The
+# LM's: a warm-up, a plain step, one with its collectives timed on the
+# host and one under the profiler; the flow's: a warm-up and a timed one
+DIST_STEPS, FLOW_DIST_STEPS = 4, 2
 # the flow training batch of phases 19-22: utterances of 160-256 tokens,
 # padded to 256 (T = 512 latent frames), ragged reference mels
 FLOW_BATCH, FLOW_TOKENS, FLOW_REF_FRAMES = 8, (160, 256), 224
@@ -372,6 +422,17 @@ def prompts():
     return ((0.5 * np.sin(2 * np.pi * 220 * t16)).astype(np.float32),
             (0.5 * np.sin(2 * np.pi * 220 * t24)).astype(np.float32),
             text, ptext)
+
+
+def lm_depth(lm_cfg, n_layers: int):
+    """lm_cfg with n_layers Qwen2 layers (full width)."""
+    return dataclasses.replace(lm_cfg, qwen=dataclasses.replace(
+        lm_cfg.qwen, n_layers=n_layers))
+
+
+def shallow_lm(cfg):
+    """cfg with its LM cut to PATH_LM_LAYERS layers (full width)."""
+    return dataclasses.replace(cfg, lm=lm_depth(cfg.lm, PATH_LM_LAYERS))
 
 
 def fixed_length(cfg, n_tokens: int):
@@ -816,9 +877,9 @@ def _prompt(pipe, inputs):
 def stream_main_path(pipe, inputs, card: str, device="cuda"):
     """Phase 11: the synthesis paths of the CLI at full width, each with
     K1's count set to 0 just before it and read just after: one unfused
-    `synthesize`; a chunked StreamingSession (one warm-up utterance, one
-    timed); a non-chunked one. Returns (K1 launches by path, the shapes
-    K1 saw on the streaming paths)."""
+    `synthesize`; a chunked StreamingSession (timed; the unfused call
+    before it is the warm-up); a non-chunked one. Returns (K1 launches by
+    path, the shapes K1 saw on the streaming paths)."""
     import torch
 
     from minimax_speech_torch.infer.session import StreamingSession
@@ -847,7 +908,7 @@ def stream_main_path(pipe, inputs, card: str, device="cuda"):
         raise AssertionError(f"unfused synthesize: {tim}, K1 {counts}")
 
     results = {}
-    for chunked in (True, True, False):
+    for chunked in (True, False):
         sess = StreamingSession(pipe, chunked=chunked)
         label = "chunked" if chunked else "nonchunked"
         if chunked:
@@ -987,8 +1048,9 @@ def stream_cross_check(pipes, inputs, device="cuda"):
 def synth_cli_phase(config: str = "configs/default.yaml", device="cuda",
                     streams=(False, True), extra=()):
     """Phase 13 (and 25 in mel mode, with `extra` overrides):
-    cli/synthesize.main at full width with the W8A8 LM, unfused and
-    streaming as `streams` says, each writing a 24 kHz wav."""
+    cli/synthesize.main at full width with the W8A8 LM (PATH_LM_LAYERS
+    deep), unfused and streaming as `streams` says, each writing a 24 kHz
+    wav."""
     import tempfile
     import wave
 
@@ -1006,6 +1068,7 @@ def synth_cli_phase(config: str = "configs/default.yaml", device="cuda",
                     "--text", "Hello there, this is a test.",
                     "--override", "model.lm.qwen.quantized=true",
                     "--override", "model.max_speech_tokens=100",
+                    "--override", f"model.lm.qwen.n_layers={PATH_LM_LAYERS}",
                     *sum((["--override", o] for o in extra), [])]
             t0 = time.perf_counter()
             audio = synth_cli.main(argv + (["--stream"] if stream else []))
@@ -1258,9 +1321,9 @@ def serve_cli_phase(device="cuda", config="configs/default.yaml",
                     extra=("--override", "model.max_speech_tokens=30",
                            "--override", "model.lm.qwen.quantized=true")):
     """Phase 17: cli/serve.py as a subprocess on 127.0.0.1, once per
-    scheduler: /healthz, a 3 s tone speaker registered, 3 concurrent
-    /synthesize requests each answered with a 24 kHz mono 16-bit WAV, a
-    bad payload answered with 400."""
+    scheduler, both started together: /healthz, a 3 s tone speaker
+    registered, 3 concurrent /synthesize requests each answered with a
+    24 kHz mono 16-bit WAV, a bad payload answered with 400."""
     import base64
     import io
     import urllib.error
@@ -1289,17 +1352,22 @@ def serve_cli_phase(device="cuda", config="configs/default.yaml",
         except urllib.error.HTTPError as e:
             return e.code, e.read()
 
-    for scheduler in ("window", "continuous"):
-        port = free_port()
-        base = f"http://127.0.0.1:{port}"
-        cmd = [sys.executable, "-m", "minimax_speech_torch.cli.serve",
-               "--random_init", "--no_warm", "--config", str(repo / config),
-               "--device", device, "--port", str(port), "--scheduler",
-               scheduler, *extra]
+    # both daemons start together: their start-ups (imports, random
+    # weights on the host) overlap
+    procs = {}
+    try:
+        for scheduler in ("window", "continuous"):
+            port = free_port()
+            cmd = [sys.executable, "-m", "minimax_speech_torch.cli.serve",
+                   "--random_init", "--no_warm", "--config",
+                   str(repo / config), "--device", device, "--port",
+                   str(port), "--scheduler", scheduler, *extra]
+            procs[scheduler] = (subprocess.Popen(
+                cmd, cwd=repo, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True),
+                f"http://127.0.0.1:{port}")
         t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        try:
+        for scheduler, (proc, base) in procs.items():
             while True:
                 if proc.poll() is not None:
                     raise AssertionError(f"serve ({scheduler}) exited "
@@ -1344,11 +1412,14 @@ def serve_cli_phase(device="cuda", config="configs/default.yaml",
                 post(base + "/synthesize", b"{not json")[0]
             if bad != (400, 400):
                 raise AssertionError(f"bad payloads answered {bad}")
-            log(f"[serve-cli] {scheduler}: up in {up:.1f} s; 3 concurrent "
-                f"requests answered 200 in {secs:.2f} s, 24 kHz mono int16 "
-                f"WAVs of {frames} samples; bad payloads answered {bad}")
-        finally:
+            log(f"[serve-cli] {scheduler}: up {up:.1f} s after both "
+                f"started; 3 concurrent requests answered 200 in "
+                f"{secs:.2f} s, 24 kHz mono int16 WAVs of {frames} samples; "
+                f"bad payloads answered {bad}")
+    finally:
+        for proc, _ in procs.values():
             proc.terminate()
+        for proc, _ in procs.values():
             try:
                 proc.wait(timeout=30)
             except subprocess.TimeoutExpired:
@@ -1813,7 +1884,8 @@ def train_main_path(model, state, make_step, args, final_loss, per_step,
     for i in range(2):
         counted(bf16_step, f"bf16 step {i + 1}")
     return {"launches": sum(k2.values()), "per_step": per,
-            "step_s": step_s, "rate": amount / step_s, "profile": prof}
+            "step_s": step_s, "rate": amount / step_s, "profile": prof,
+            "peak_gib": peak / 2**30}
 
 
 def lm_train_phase(lm_cfg, batch, card: str, device="cuda"):
@@ -1833,7 +1905,9 @@ def lm_train_phase(lm_cfg, batch, card: str, device="cuda"):
         (int(batch["seq_len"].sum()), "plan tokens"),
         f"LM B={LM_BATCH} L={batch['src_type'].shape[1]}", card, device)
     return {"launches": rec["launches"], "launches_per_step": rec["per_step"],
-            "step_s": rec["step_s"], "tokens_per_s": rec["rate"]}
+            "step_s": rec["step_s"], "tokens_per_s": rec["rate"],
+            "peak_gib": rec["peak_gib"],
+            "busy_ms": rec["profile"].get("busy_ms")}
 
 
 def write_corpus(root: Path, n: int = 16, seed: int = 0) -> Path:
@@ -1997,7 +2071,7 @@ def first_grads(model, loss) -> dict:
             for n, p, g in zip(names, params, grads)}
 
 
-def train_cross_check(full_lm_cfg, batch, device="cuda", steps_n=3):
+def train_cross_check(full_lm_cfg, batch, device="cuda", steps_n=2):
     """Phase 9: 2 LM layers, the same weights and batch on `device` and on
     the CPU: every leaf's gradient at the start, the metrics of each
     step, and the parameters after `steps_n` steps."""
@@ -2111,7 +2185,7 @@ def compare_training(runs, device, steps_n, tag, what, symmetric=(),
     for line in bad:
         log(f"[{tag}]   FAIL {line}")
     if worst > TRAIN_METRIC_RTOL or bad:
-        raise AssertionError("training differs between the card and the CPU")
+        raise AssertionError(f"training differs between the runs ({what})")
 
 
 def flow_batch(flow_cfg, batch: int = FLOW_BATCH):
@@ -2148,7 +2222,8 @@ def _flow_draws(flow_cfg, batch, device, seed=0):
         use_cond=d.use_cond.to(device), frac=d.frac.to(device),
         cfm=dataclasses.replace(d.cfm, **{
             f.name: getattr(d.cfm, f.name).to(device)
-            for f in dataclasses.fields(d.cfm)}))
+            for f in dataclasses.fields(d.cfm)
+            if torch.is_tensor(getattr(d.cfm, f.name))}))
 
 
 def reset_counts():
@@ -2243,7 +2318,7 @@ def flow_leaves(names):
              and n.endswith(("to_q.weight", "to_k.weight"))])
 
 
-def flow_cross_check(full_flow_cfg, batch, device="cuda", steps_n=3):
+def flow_cross_check(full_flow_cfg, batch, device="cuda", steps_n=2):
     """Phase 22: the flow at reduced depth, the same weights, batch and
     draws on `device` and on the CPU, and a float64 run on the CPU for
     the first-step gradients: phase 9's checks on every leaf, with both
@@ -2345,39 +2420,36 @@ def memory_in_use(device) -> int:
     return torch.cuda.memory_allocated() if device == "cuda" else 0
 
 
-def remat_phase(lm_cfg, batch, card: str, device="cuda") -> dict:
-    """Phase 28: phase 7's LM and batch with remat off, "dots" and "none":
-    2 warm-up and 3 timed steps each (step_s, peak memory, a profiled
-    step); K2 24 + 24 launches per step off, 48 + 24 with remat. The
-    first-step gradients of each remat mode within REMAT_GRAD_RTOL of
-    each leaf's largest of the remat-off step's."""
+def remat_phase(lm_cfg, batch, card: str, off: dict,
+                device="cuda") -> dict:
+    """Phase 28: phase 7's LM and batch with remat "dots" and "none": 2
+    warm-up and 3 timed steps each (step_s, peak memory, a profiled
+    step); K2 48 + 24 launches per step. The first-step gradients of each
+    within REMAT_GRAD_RTOL of each leaf's largest of a remat-off first
+    step's. Remat off's step_s, peak and busy time are phase 7's record
+    `off` (its step is the same)."""
     import torch
 
     from minimax_speech_torch.train import steps
 
     b = _on(batch, device)
-    out, ref = {}, None
+    out, ref = {"off": off}, None
     base = memory_in_use(device)
     for mode in ("off", "dots", "none"):
         cfg = remat_lm(lm_cfg, mode)
         model, state = lm_state(cfg, device)
         grads = first_grads(model, steps.make_lm_loss_fn(model)(b)[0])
-        if ref is None:
+        if ref is None:  # remat off: the gradient baseline only
             ref = grads
-            err = grad_errors(first_grads(
-                model, steps.make_lm_loss_fn(model)(b)[0]), ref)
-            worst = max(err, key=err.get)
-            log(f"[remat] off: a second remat-off first step against the "
-                f"first (run-to-run spread), worst max |diff| "
-                f"{err[worst]:.2e} of the leaf's largest ({worst})")
-        else:
-            err = grad_errors(grads, ref)
-            worst = max(err, key=err.get)
-            log(f"[remat] {mode}: first-step gradients against remat off, "
-                f"worst max |diff| {err[worst]:.2e} of the leaf's largest "
-                f"({worst}; tol {REMAT_GRAD_RTOL:g})")
-            if err[worst] > REMAT_GRAD_RTOL:
-                raise AssertionError(f"remat {mode} changes the gradients")
+            del model, state
+            continue
+        err = grad_errors(grads, ref)
+        worst = max(err, key=err.get)
+        log(f"[remat] {mode}: first-step gradients against remat off, "
+            f"worst max |diff| {err[worst]:.2e} of the leaf's largest "
+            f"({worst}; tol {REMAT_GRAD_RTOL:g})")
+        if err[worst] > REMAT_GRAD_RTOL:
+            raise AssertionError(f"remat {mode} changes the gradients")
         del grads
         rec = measured_steps(
             steps.make_lm_train_step(model, device=device), state, (b,),
@@ -2472,9 +2544,10 @@ def dpo_models(lm_cfg, device, mode="off", seed=0):
 def dpo_phase(lm_cfg, batch, card: str, device="cuda") -> dict:
     """Phase 29: make_dpo_step at full width on the fixed DPO batch, the
     policy phase 7's LM and the reference a jittered copy: 2 warm-up and
-    5 timed steps, a profiled one, with remat off (then steps to 10: the
-    loss must fall and the reward accuracy not fall), then with "dots";
-    K2 96 + 48 launches per step off, 144 + 48 with remat, K1 none."""
+    3 timed steps, a profiled one, with remat off (over its first 5 steps
+    the loss must fall and the reward accuracy not fall), then with
+    "dots"; K2 96 + 48 launches per step off, 144 + 48 with remat, K1
+    none."""
     import torch
 
     from minimax_speech_torch.train import gan_steps
@@ -2487,25 +2560,23 @@ def dpo_phase(lm_cfg, batch, card: str, device="cuda") -> dict:
         step = gan_steps.make_dpo_step(model, ref, DPO_BETA, device=device)
         rec = measured_steps(step, state, (b,),
                              k2_per_step(lm_cfg, 4, 2, mode),
-                             f"DPO remat {mode}", card, device, base=base)
+                             f"DPO remat {mode}", card, device, timed=3,
+                             base=base)
         m = rec["metrics"]
         if mode == "off":
-            while len(m) < 10:
-                _, last = step(state, b)
-                m.append({k: float(v) for k, v in last.items()})
-            first, tenth = m[0], m[9]
-            log(f"[dpo] {card} | 10 steps: dpo/loss {first['dpo/loss']:.5f}"
-                f" -> {tenth['dpo/loss']:.5f}, reward_acc "
+            first, fifth = m[0], m[4]
+            log(f"[dpo] {card} | 5 steps: dpo/loss {first['dpo/loss']:.5f}"
+                f" -> {fifth['dpo/loss']:.5f}, reward_acc "
                 f"{first['dpo/reward_acc']:.3f} -> "
-                f"{tenth['dpo/reward_acc']:.3f}, chosen reward "
+                f"{fifth['dpo/reward_acc']:.3f}, chosen reward "
                 f"{first['dpo/chosen_reward']:.5f} -> "
-                f"{tenth['dpo/chosen_reward']:.5f}, rejected "
+                f"{fifth['dpo/chosen_reward']:.5f}, rejected "
                 f"{first['dpo/rejected_reward']:.5f} -> "
-                f"{tenth['dpo/rejected_reward']:.5f}")
-            if not (tenth["dpo/loss"] < first["dpo/loss"]
-                    and tenth["dpo/reward_acc"] >= first["dpo/reward_acc"]):
+                f"{fifth['dpo/rejected_reward']:.5f}")
+            if not (fifth["dpo/loss"] < first["dpo/loss"]
+                    and fifth["dpo/reward_acc"] >= first["dpo/reward_acc"]):
                 raise AssertionError("DPO: the loss did not fall or the "
-                                     "reward accuracy fell in 10 steps")
+                                     "reward accuracy fell in 5 steps")
         out[mode] = {k: rec[k] for k in ("step_s", "peak_gib", "per_step",
                                          "launches", "profile")}
         del model, state, ref, step
@@ -2528,7 +2599,7 @@ def dpo_loss_of(model, ref, batch):
             (c, r, ref_c, ref_r))
 
 
-def dpo_cross_check(full_lm_cfg, batch, device="cuda", steps_n=3):
+def dpo_cross_check(full_lm_cfg, batch, device="cuda", steps_n=2):
     """Phase 30: make_dpo_step at 2 layers, float32, the same weights,
     reference and batch (the first DPO_CROSS_BATCH pairs of `batch`) on
     the CPU (remat off) and on `device` (remat off, then "dots"). Each card run against the CPU run: the first step's
@@ -2583,6 +2654,600 @@ def dpo_cross_check(full_lm_cfg, batch, device="cuda", steps_n=3):
 
         compare_training({"cpu": keep(cpu), device: keep(card)}, device,
                          steps_n, "cross-dpo", f"DPO, 2 layers, remat {mode}")
+
+
+# -- phases 32-34: training over two ranks ------------------------------------
+
+def dist_backend() -> str:
+    """NCCL with a card per rank; with one card the two ranks share it
+    over gloo (NCCL refuses two ranks on one device)."""
+    import torch
+    return "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+
+
+def _dist_state(kind: str, model_cfg, device, mesh=None, seed: int = 0,
+                weights=None):
+    """Phase 7's (kind "lm", or "dpo" for the policy) or 20's (kind
+    "flow") model from `seed` on `device` (cuda: this rank's card), and
+    its train state on `mesh` (None: one process). With kind "dpo", also
+    the reference policy: the same weights, each leaf moved by DPO_JITTER
+    times its spread (lm_weights' rule), on the same tp slices. A
+    shallower LM after a deeper one takes the deeper one's weights of
+    its layers; `weights`, a file of torch.save'd initial weights from
+    `seed` (the main process's lm_weights), is read in place of the
+    initialiser's run, which takes a rank ~20 s at full width."""
+    import torch
+
+    from minimax_speech_torch.models import flow as flow_mod
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.parallel.layers import shard_module
+    from minimax_speech_torch.train import schedule, steps
+    from minimax_speech_torch.utils import params_io
+
+    def build():
+        return flow_mod.FlowModel(model_cfg) if kind == "flow" \
+            else llm_mod.SpeechLM(model_cfg)
+
+    dev = torch.cuda.current_device() if device == "cuda" else device
+    key = (kind == "flow", model_cfg, seed)
+    if key not in _INITIAL:  # the initialiser's draws, made once a process
+        deeper = [k for k in _INITIAL if len(k) == 3 and not k[0]
+                  and not key[0] and k[2] == seed and lm_depth(
+                      k[1], model_cfg.qwen.n_layers) == model_cfg]
+        if deeper:  # a shallower LM: a deeper one's first layers
+            with torch.device("meta"):
+                wanted = build().state_dict()
+            initial = {n: _INITIAL[deeper[0]][n] for n in wanted}
+        elif weights is not None:
+            initial = torch.load(weights, mmap=True, weights_only=True)
+        else:
+            initial = params_io.init_params(
+                build(), torch.Generator().manual_seed(seed)).state_dict()
+        _INITIAL.clear()
+        _INITIAL[key] = initial
+
+    def load(tensors):
+        with torch.device("meta"):
+            model = build()
+        model = model.to_empty(device=dev)
+        model.load_state_dict(tensors)
+        return model
+
+    model = load(_INITIAL[key])
+    tx = schedule.make_optimizer(lr=TRAIN_LR, warmup_steps=0)
+    state = steps.make_train_state(model, tx, mesh,
+                                   kind="flow" if kind == "flow" else "lm")
+    if kind != "dpo":
+        return model, state
+    if ("reference",) + key not in _INITIAL:
+        gen = torch.Generator().manual_seed(seed + 1)
+        _INITIAL[("reference",) + key] = {
+            k: v + DPO_JITTER * (float(v.std()) if v.numel() > 1 else 1.0)
+            * torch.randn(v.shape, generator=gen)
+            for k, v in _INITIAL[key].items()}
+    ref = load(_INITIAL[("reference",) + key])
+    if mesh is not None:
+        shard_module(ref, mesh, "lm")
+    return model, state, ref
+
+
+# (is the flow, config, seed) -> the initial weights, on the CPU; with
+# "reference" first, DPO's jittered reference of them
+_INITIAL = {}
+
+
+def _dist_step(kind, model, batch, dp_rank, dp, device, ref=None):
+    """(the step's arguments: this rank's rows of `batch` on `device`, and
+    for the flow its rows of the global batch's draws; the step). With
+    kind "dpo", `ref` is the reference policy."""
+    import torch
+
+    from minimax_speech_torch.train import gan_steps, steps
+
+    n = next(iter(batch.values())).shape[0] // dp
+    rows = {k: v[dp_rank * n:(dp_rank + 1) * n] for k, v in batch.items()}
+    dev = torch.cuda.current_device() if device == "cuda" else device
+    b = _on(rows, dev)
+    if kind == "flow":
+        draws = _flow_draws(model.cfg, batch, dev).rows(dp_rank * n, n)
+        return (b, draws), steps.make_flow_train_step(model, device=device)
+    if kind == "dpo":
+        return (b,), gan_steps.make_dpo_step(model, ref, DPO_BETA,
+                                             device=device)
+    return (b,), steps.make_lm_train_step(model, device=device)
+
+
+@contextlib.contextmanager
+def first_gradients(keep):
+    """Within: train.steps.gradients passes its first result, the first
+    step's gradients, to keep(grads), once."""
+    from minimax_speech_torch.train import steps
+
+    real, done = steps.gradients, []
+
+    def capture(state, loss):
+        grads = real(state, loss)
+        if not done:
+            done.append(True)
+            keep(grads)
+        return grads
+
+    steps.gradients = capture
+    try:
+        yield
+    finally:
+        steps.gradients = real
+
+
+def timed_collectives(run_step, device) -> tuple:
+    """One call of run_step() with every torch.distributed collective
+    timed on the host, the device synchronised before and after each (so
+    the time is the collective's own, gloo's copies of CUDA tensors
+    through the host included): (its result, the share of the step's
+    wall time the collectives take, that wall time)."""
+    import torch
+    import torch.distributed as dist
+
+    on = device == "cuda"
+    spent = [0.0]
+    names = ("all_reduce", "all_gather", "broadcast", "broadcast_object_list")
+    real = {n: getattr(dist, n) for n in names}
+
+    def timed(fn):
+        def call(*a, **kw):
+            if on:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if on:
+                torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    for n in names:
+        setattr(dist, n, timed(real[n]))
+    try:
+        if on:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_step()
+        if on:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+    return out, spent[0] / wall, wall
+
+
+def traced_collectives(run_step, device) -> tuple:
+    """One call of run_step() under torch.profiler, the card not
+    synchronised around the collectives: (its result, {"wall_s": the
+    step's wall time, "copy_ms": the card's time in copies between card
+    and host, "events": the trace's collective events by name, [count,
+    host ms, device ms]}). Under gloo the card sees a collective of CUDA
+    tensors only as those copies; the exchange and the sum run on the
+    host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    on = device == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on else [])
+    if on:
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = run_step()
+        if on:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_ms(evt, self_only=False):
+        names = (("self_device_time_total", "self_cuda_time_total")
+                 if self_only else ("device_time_total", "cuda_time_total"))
+        return next((getattr(evt, n) for n in names if hasattr(evt, n)),
+                    0.0) / 1e3
+
+    words = ("allreduce", "all_reduce", "allgather", "all_gather",
+             "broadcast", "gloo", "nccl")
+    copy_ms, events = 0.0, {}
+    for e in prof.key_averages():
+        k = e.key.lower()
+        if e.device_type == DeviceType.CUDA:
+            if "memcpy" in k and ("dtoh" in k or "htod" in k):
+                copy_ms += dev_ms(e, self_only=True)
+        elif any(w in k for w in words):
+            events[e.key] = [e.count, round(e.cpu_time_total / 1e3, 3),
+                             round(dev_ms(e), 3)]
+    return out, {"wall_s": wall, "copy_ms": copy_ms, "events": events}
+
+
+def dist_train_job(kind: str, model_cfg, batch: dict, dp: int, tp: int,
+                   steps_n: int, per_step, device="cuda",
+                   weights=None) -> dict:
+    """On every rank of a dp x tp mesh: phase 7's or 20's model (or
+    DPO's), this rank's rows of `batch`; steps_n steps (K2's launches per
+    step asserted against `per_step`), each step timed: with 4 steps or
+    more the one before the last with its collectives timed on the host
+    (timed_collectives) and the last under the profiler
+    (traced_collectives), else the last with its collectives timed; the
+    first step's gradients and the parameters after the steps gathered
+    whole. Keeps rank 0's record on its card (_RUNS); returns every
+    rank's step times (the first without its gradients' gather), which
+    step was timed and which traced, peak memory, the collectives' share
+    and the trace's reading."""
+    import torch
+
+    from minimax_speech_torch.parallel import mesh as mesh_lib
+    from minimax_speech_torch.parallel.collectives import full_tensors
+
+    tf32_off()
+    on = device == "cuda"
+    mesh = mesh_lib.make_mesh(dp, tp)
+    if on:
+        torch.cuda.reset_peak_memory_stats()
+    model, state, *ref = _dist_state(kind, model_cfg, device, mesh,
+                                     weights=weights)
+    args, step = _dist_step(kind, model, batch, mesh.dp_rank, dp, device,
+                            *ref)
+    names = [n for n, _ in model.named_parameters()]
+    main = mesh.is_main
+
+    def whole(tensors):  # copies on rank 0's device, which compares them
+        out = full_tensors([t.detach() for t in tensors], state.layouts,
+                           mesh)
+        return {n: t.clone() for n, t in zip(names, out)} if main else {}
+
+    grads, gather_s = {}, []
+
+    def keep(g):
+        t0 = time.perf_counter()
+        grads.update(whole(g))
+        gather_s.append(time.perf_counter() - t0)
+
+    metrics, secs, traced = [], [], None
+    timed_i = steps_n - 2 if steps_n >= 4 else steps_n - 1
+    traced_i = steps_n - 1 if steps_n >= 4 else None
+    reset_counts()
+    with first_gradients(keep):
+        for i in range(steps_n):
+            def run():
+                return {k: float(v)
+                        for k, v in step(state, *args)[1].items()}
+
+            if i == timed_i:  # its collectives timed on the host
+                m, share, wall = timed_collectives(run, device)
+            elif i == traced_i:  # under the profiler
+                m, traced = traced_collectives(run, device)
+                wall = traced["wall_s"]
+            else:
+                t0 = time.perf_counter()
+                m = run()  # syncs
+                if on:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            secs.append(wall - (gather_s.pop() if gather_s else 0.0))
+            metrics.append(m)
+    k2, k1 = read_counts()
+    got = ({k: n / steps_n for k, n in k2.items()}, k1 / steps_n)
+    if not on:  # the CPU runs the kernels' plain versions
+        per_step = ({"forward": 0, "backward": 0}, 0)
+    if got != per_step:
+        raise AssertionError(f"{kind} dp={dp} tp={tp} rank {mesh.rank}: K2 "
+                             f"and K1 launches per step {got}, expected "
+                             f"{per_step}")
+    params = whole(state.params())
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on else None
+    del model, state, args
+    if on:
+        torch.cuda.empty_cache()
+    if main:  # kept in this process for the "compare" job
+        _RUNS[(kind, (dp, tp))] = (metrics, grads, params)
+    return {"step_s": secs, "peak_gib": peak, "collective_share": share,
+            "timed_i": timed_i, "traced_i": traced_i, "traced": traced,
+            "per_step": got}
+
+
+def dist_reference_job(kind: str, model_cfg, batch: dict, steps_n: int,
+                       device="cuda", weights=None) -> None:
+    """Rank 0's single-process run of the same model on the whole batch:
+    (metrics per step, first-step gradients, parameters after steps_n
+    steps), kept on its device for dist_compare_job."""
+    import torch.distributed as dist
+
+    if dist.get_rank() != 0:
+        return
+    tf32_off()
+    model, state, *ref = _dist_state(kind, model_cfg, device,
+                                     weights=weights)
+    args, step = _dist_step(kind, model, batch, 0, 1, device, *ref)
+    names = [n for n, _ in model.named_parameters()]
+    grads = {}
+    metrics = []
+    with first_gradients(lambda g: grads.update(zip(names, g))):
+        for _ in range(steps_n):
+            state, m = step(state, *args)
+            metrics.append({k: float(v) for k, v in m.items()})
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    _RUNS[(kind, "reference")] = (metrics, grads, params)
+
+
+def dist_compare_job(kind: str, mesh, what: str, symmetric,
+                     steps_n: int) -> None:
+    """On rank 0: compare_training of the `mesh` run of `kind` against the
+    one-process run (phase 9's limits), which it raises on; the run is
+    dropped after."""
+    import torch.distributed as dist
+
+    def keep(run):  # DPO: phase 30's metrics (the rewards may be ~0)
+        if kind != "dpo":
+            return run
+        return ([{"loss": m["dpo/loss"], "reward_acc": m["dpo/reward_acc"]}
+                 for m in run[0]], *run[1:])
+
+    if dist.get_rank() == 0:
+        compare_training({"cpu": keep(_RUNS[(kind, "reference")]),
+                          "dist": keep(_RUNS.pop((kind, mesh)))}, "dist",
+                         steps_n, "dist", what, symmetric=symmetric)
+        if not any(k[0] == kind and k[1] != "reference" for k in _RUNS):
+            del _RUNS[(kind, "reference")]
+
+
+_RUNS = {}  # a gang rank's runs, by (kind, mesh or "reference")
+
+
+def dist_k2_phase(cases) -> dict:
+    """Phases 32-33: K2 at the shapes each rank gives it, (name, (B, H, T,
+    64), key lengths, mode) per case: against its plain version at
+    K2_TOL in fp32 and bf16, then kernel, plain and SDPA timed (k2_timing)
+    beside the bound. Returns the records by name."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    out = {}
+    for name, shape, kv, mode in cases:
+        k2_agreement([(shape, kv)], {mode: K2_MODES[mode]}, gen)
+        out[name] = k2_timing(gen, shape, kv, mode)
+    return out
+
+
+def flow_symmetric(flow_cfg) -> list:
+    """The flow's parameter names whose gradient is 0 by symmetry
+    (flow_leaves)."""
+    import torch
+
+    from minimax_speech_torch.models import flow as flow_mod
+    with torch.device("meta"):
+        names = [n for n, _ in flow_mod.FlowModel(flow_cfg).named_parameters()]
+    return flow_leaves(names)[0]
+
+
+def world1_phase(lm_cfg, batch, device="cuda", backend="nccl"):
+    """Phase 32, first part: world size 1 through the distributed code on
+    NCCL (the default group, a 1 x 1 mesh, the step's loss with its dp
+    group and steps.gradients): phase 7's first step's loss and every
+    leaf's gradient within REMAT_GRAD_RTOL of the leaf's largest against
+    the one-process step on the same module."""
+    from minimax_speech_torch.parallel import mesh as mesh_lib
+    from minimax_speech_torch.train import steps
+    from minimax_speech_torch.utils import distributed
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend, device)
+    try:
+        model, plain = lm_state(lm_cfg, device)  # phases 28-31's weights
+        tx = plain.optimizer
+        meshed = steps.make_train_state(model, tx, mesh_lib.make_mesh(1, 1))
+        b = _on(batch, device)
+        out = {}
+        for name, state in (("plain", plain), ("nccl", meshed)):
+            loss, _ = steps.make_lm_loss_fn(model)(b, group=state.dp_group)
+            g = steps.gradients(state, loss)
+            out[name] = (float(loss), dict(zip(
+                [n for n, _ in model.named_parameters()],
+                [x.detach().cpu() for x in g])))
+            del g, loss
+        err = grad_errors(out["nccl"][1], out["plain"][1])
+        worst = max(err, key=err.get)
+        rel = abs(out["nccl"][0] - out["plain"][0]) / abs(out["plain"][0])
+        log(f"[dist] world size 1 on {backend} (1 x 1 mesh): first-step loss "
+            f"{out['nccl'][0]:.6f} vs {out['plain'][0]:.6f} (rel diff "
+            f"{rel:.2e}), gradient per leaf worst max |diff| "
+            f"{err[worst]:.2e} of the leaf's largest ({worst}; tol "
+            f"{REMAT_GRAD_RTOL:g})")
+        if err[worst] > REMAT_GRAD_RTOL or rel > REMAT_GRAD_RTOL:
+            raise AssertionError("world size 1 on NCCL differs from one "
+                                 "process")
+        del model, plain, meshed, out
+    finally:
+        distributed.shutdown()
+
+
+def dist_phase(gang, kind: str, model_cfg, batch, card: str,
+               backend: str, symmetric=(), device="cuda",
+               meshes=((1, 2), (2, 1)), steps_n: int = DIST_STEPS,
+               weights=None) -> dict:
+    """Phase 32 (kind "lm", then "dpo") or 33 ("flow"): the step at each
+    (dp, tp) of `meshes` on the gang's two ranks against rank 0's
+    one-process step on the whole batch: compare_training's limits
+    (phase 9's and 22's; for DPO phase 30's metrics) on the metrics of
+    steps_n steps, every leaf's gathered first-step gradient and the
+    parameters after the steps; K2's launches per step per rank asserted
+    (a DPO step: four forwards, two under grad). Each rank's step_s is
+    the median of its steps after the first (a process's warm-up) but
+    the traced one (dist_train_job); the timed step less a plain one
+    before it is what the timed step's syncs cost. Returns
+    {"per_step": K2's launches per step per rank by path, "step_s": each
+    rank's step_s}. weights: a file of the model's initial weights
+    (_dist_state)."""
+    n = (attn_calls_per_step(model_cfg.unet) if kind == "flow"
+         else model_cfg.qwen.n_layers)
+    per_step = ({"forward": 4 * n, "backward": 2 * n} if kind == "dpo"
+                else {"forward": n, "backward": n}, 0.0)
+    recs, job_s = {}, {}
+    for mesh in meshes:
+        t0 = time.perf_counter()
+        recs[mesh] = gang.run("dist_train_job", kind, model_cfg, batch,
+                              *mesh, steps_n, per_step, device, weights)
+        job_s[mesh] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gang.run("dist_reference_job", kind, model_cfg, batch, steps_n, device,
+             weights)
+    log(f"[time] {kind} over ranks: the runs at (dp, tp) "
+        + ", ".join(f"{m} {t:.1f} s" for m, t in job_s.items())
+        + f", the one-process run {time.perf_counter() - t0:.1f} s")
+    out = {"per_step": {}, "step_s": {}}
+    for (dp, tp), ranks in recs.items():
+        what = (f"{kind} dp={dp} tp={tp}, 2 ranks over {backend}, "
+                f"{batch[next(iter(batch))].shape[0] // dp} rows a rank")
+        # rank 0 holds both runs on its card and compares them there
+        gang.run("dist_compare_job", kind, (dp, tp), what, symmetric,
+                 steps_n)
+        r0 = ranks[0]
+        ti, tr = r0["timed_i"], r0["traced_i"]
+        extra = ""
+        if ti >= 2:  # a plain step after the first precedes the timed one
+            syncs = [round(r["step_s"][ti] - r["step_s"][ti - 1], 4)
+                     for r in ranks]
+            extra += f", the timed step's syncs add per rank {syncs} s"
+        if tr is not None:
+            walls = [r["traced"]["wall_s"] for r in ranks]
+            copies = [round(r["traced"]["copy_ms"] / 1e3 / w, 4)
+                      for r, w in zip(ranks, walls)]
+            extra += (
+                f"; the traced step (profiler, no syncs): wall per rank "
+                f"{[round(w, 4) for w in walls]} s, the card's copies to "
+                f"and from the host {copies} of it, rank 0's collective "
+                f"events [count, host ms, device ms] "
+                f"{r0['traced']['events']}")
+        log(f"[dist] {card} | {what}: step_s per rank "
+            f"{[[round(s, 4) for s in r['step_s']] for r in ranks]}, peak "
+            f"memory per rank (GiB) {[r['peak_gib'] for r in ranks]}, "
+            f"share of step {ti + 1} in its collectives (host-timed, the "
+            f"card synchronised around each) per rank "
+            f"{[r['collective_share'] for r in ranks]}{extra}; K2 "
+            f"launches per step per rank {r0['per_step'][0]} "
+            f"(asserted on every rank), K1 {r0['per_step'][1]}")
+        path = f"{kind}_train_dp{dp}_tp{tp}"
+        out["per_step"][path] = r0["per_step"][0]
+        out["step_s"][path] = [statistics.median(
+            t for i, t in enumerate(r["step_s"]) if 0 < i != tr)
+            for r in ranks]
+    out["steps"] = steps_n
+    return out
+
+
+CLI_WORKER = "--cli-worker"
+
+
+def cli_worker(argv) -> int:
+    """A rank of phase 34, started by cli/launch.py as `python -m
+    chip_smoke --cli-worker <cli/train.py arguments>`: cli/train.main
+    with the kernels' launch counts printed at its end."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from minimax_speech_torch.cli import train as train_cli
+
+    reset_counts()
+    state = train_cli.main(argv)
+    k2, k1 = read_counts()
+    print(json.dumps({"cli_worker": {"step": state.step, "k2": k2,
+                                     "k1": k1}}), flush=True)
+    return 0
+
+
+def launch_phase(card: str, backend: str, device="cuda",
+                 config="configs/default.yaml",
+                 overrides=(f"model.lm.qwen.n_layers={LAUNCH_LM_LAYERS}",)):
+    """Phase 34: python -m minimax_speech_torch.cli.launch --nproc 2, each
+    rank cli/train.main (through cli_worker, which prints K2's
+    launches) --model llm --tp 2 at full width (LAUNCH_LM_LAYERS layers)
+    for one epoch of phase 8's corpus (batch_size 8, plans padded to
+    512), then a second gang
+    that resumes at the saved step and writes --export_npz, gathered to
+    rank 0, which the port's SpeechLM loads. Each rank of the first gang
+    must launch K2 once forward and once backward per layer and step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch import config as cfg_lib
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.utils import params_io
+
+    repo = Path(__file__).resolve().parent
+    scratch = repo / "build"
+    scratch.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="launch_", dir=scratch))
+    try:
+        lst = write_corpus(root)
+        npz = root / "lm.npz"
+        train = [CLI_WORKER, "--model", "llm", "--config",
+                 str(repo / config), "--train_data", str(lst),
+                 "--model_dir", str(root / "exp"), "--tp", "2",
+                 "--backend", backend, "--max_epoch", "1",
+                 *sum((["--override", o] for o in (
+                     "train.batch_size=8", "train.pad_seq=512",
+                     "train.pad_ref=224", "train.save_per_step=2",
+                     "train.warmup_steps=0", "train.log_interval=1",
+                     *overrides)), [])]
+        calls = []
+        for i, extra in enumerate(([], ["--export_npz", str(npz)])):
+            logs = root / f"logs{i}"
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "minimax_speech_torch.cli.launch",
+                 "--nproc", "2", "--max_restarts", "0", "--module",
+                 "chip_smoke", "--device", device, "--log_dir", str(logs),
+                 "--", *train, *extra], cwd=repo, capture_output=True,
+                text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            texts = [(logs / f"rank{k}.attempt0.log").read_text()
+                     for k in range(2)]
+            if r.returncode != 0:
+                raise AssertionError(f"launch exited {r.returncode}: "
+                                     f"{r.stderr[-2000:]}\n{texts[0][-3000:]}"
+                                     f"\n{texts[1][-3000:]}")
+            counts = [json.loads(next(
+                line for line in t.splitlines()
+                if line.startswith('{"cli_worker"')))["cli_worker"]
+                for t in texts]
+            calls.append((secs, counts, texts[0]))
+        (s1, c1, log1), (s2, c2, log2) = calls
+        steps_n = c1[0]["step"]
+        cfg = cfg_lib.load_tts_config(str(repo / config),
+                                      list(overrides)).lm
+        n = cfg.qwen.n_layers
+        per = [{k: v / max(steps_n, 1) for k, v in c["k2"].items()}
+               for c in c1]
+        rows = [json.loads(line) for line in (
+            root / "exp" / "llm_metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        with torch.device("meta"):  # no initialiser: the export's weights
+            lm = llm_mod.SpeechLM(cfg)
+        lm = params_io.load_flax_params(lm.to_empty(device=device),
+                                        params_io.load_params(str(npz)))
+        finite = all(bool(p.isfinite().all()) for p in lm.parameters())
+        log(f"[launch] {card} | cli/launch.py --nproc 2, cli/train.py "
+            f"--model llm --tp 2 over {backend}: one epoch of {steps_n} "
+            f"steps in {s1:.1f} s (losses {[round(x, 4) for x in losses]}), "
+            f"K2 launches per step per rank {per}, K1 "
+            f"{[c['k1'] for c in c1]}; second gang resumed at step "
+            f"{c2[0]['step']} and exported in {s2:.1f} s; the port loads "
+            f"the export, finite {finite}")
+        want = {"forward": n, "backward": n} if device == "cuda" \
+            else {"forward": 0, "backward": 0}
+        if steps_n < 1 or any(p != want for p in per) or \
+                any(c["k1"] for c in c1) or not losses or \
+                not np.isfinite(losses).all() or \
+                f"resumed from step {steps_n}" not in log2 or \
+                c2[0]["step"] != steps_n or not finite:
+            raise AssertionError(f"launch phase: steps {steps_n}, K2 per "
+                                 f"step {per}, resumed {c2}, losses {losses}")
+        return {"per_step": per[0], "launches": sum(c1[0]["k2"].values())}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_time(n: int, t0: float) -> float:
@@ -2715,8 +3380,8 @@ def hift_phase(hift_cfg, card: str, device="cuda") -> dict:
 
 
 def mel_synthesis_phase(pipe, inputs, card: str, device="cuda"):
-    """Phase 24: mel mode at full width with phase 4's LM: synthesize_fused
-    (a warm-up, then a timed call) and the unfused synthesize, each with
+    """Phase 24: mel mode at full width with phase 4's LM at PATH_LM_LAYERS
+    layers: synthesize_fused and the unfused synthesize, each with
     HiFT's seconds and 560 K1 launches per flow call; a chunked
     StreamingSession: time to first chunk, seconds per hop with HiFT's
     full-prefix decode in each, K1's launches per path as phase 11 counts
@@ -2747,8 +3412,7 @@ def mel_synthesis_phase(pipe, inputs, card: str, device="cuda"):
     pipe.decode = timed(pipe.decode)
     launches = {}
     try:
-        for label, fn, seed in (("warm-up", pipe.synthesize_fused, 1),
-                                ("fused", pipe.synthesize_fused, 2),
+        for label, fn, seed in (("fused", pipe.synthesize_fused, 2),
                                 ("unfused", pipe.synthesize, 3)):
             hift_s.clear()
             fa.launches = 0
@@ -3066,6 +3730,14 @@ def convert_phase(pipes, inputs, card: str, device="cuda"):
                              "converter's trees")
 
 
+def tf32_off():
+    """fp32 matmuls and convolutions without TF32, in this process (the
+    main one, or a rank of phases 32-33's gang)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3078,14 +3750,15 @@ def main() -> int:
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_info()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32_off()
     log(f"[device] {name} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} python {sys.version.split()[0]} | "
         f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32} cudnn "
         f"{torch.backends.cudnn.allow_tf32}")
+    t0 = phase_time(1, t_start)
 
     build_phase(build)
+    t0 = phase_time(2, t0)
 
     train_lm = TTSConfig().lm  # training runs the float LM
     cfg = fixed_length(TTSConfig(), GEN_TOKENS)
@@ -3100,6 +3773,7 @@ def main() -> int:
     t = 2 * (128 + GEN_TOKENS)  # [prompt bucket | max steps] tokens, 2x
     kv = 2 * (n_prompt + GEN_TOKENS)
     record = k1_checks((b, h, t, d), (kv, kv))
+    t0 = phase_time(3, t0)
 
     pipe = TTSPipeline.from_random(cfg, seed=0, device="cuda")
     pipe.lm.to(torch.bfloat16)
@@ -3111,23 +3785,32 @@ def main() -> int:
                              f"(expected {expect}), shape {seen}")
     del pipe
     torch.cuda.empty_cache()
+    t0 = phase_time(4, t0)
     pipes = reduced_pipes(cfg, inputs)
     cross_check(pipes, inputs)
     w8a8_cross_check(cfg, pipes, inputs)
     del pipes
+    t0 = phase_time(5, t0)
     record["launches"] = per_utt[-1]
 
     batch = lm_batch(train_lm)
     q = train_lm.qwen
     k2 = k2_checks((LM_BATCH, q.n_heads, LM_PAD, q.head_dim),
                    [int(n) for n in batch["seq_len"]])
-    k2.update(lm_train_phase(train_lm, batch, card))
+    t0 = phase_time(6, t0)
+    lm_rec = lm_train_phase(train_lm, batch, card)
+    k2.update({k: lm_rec[k] for k in ("launches", "launches_per_step",
+                                      "step_s", "tokens_per_s")})
     torch.cuda.empty_cache()
+    t0 = phase_time(7, t0)
     cli_phase()
+    t0 = phase_time(8, t0)
     train_cross_check(train_lm, batch)
+    t0 = phase_time(9, t0)
 
     w8a8_checks(cfg.lm.qwen, card)
-    pipe = TTSPipeline.from_random(cfg, seed=0, device="cuda")
+    t0 = phase_time(10, t0)
+    pipe = TTSPipeline.from_random(shallow_lm(cfg), seed=0, device="cuda")
     pipe.lm.to(torch.bfloat16)
     record["launches_by_path"], shapes, _ = stream_main_path(pipe, inputs,
                                                              card)
@@ -3139,8 +3822,11 @@ def main() -> int:
         chunk = cfg.flow.unet.static_chunk_size if "chunk50" in path else 0
         record["at_streaming_shapes"][path] = k1_timing(
             gen, (bb, h, tt, d), kv_s, chunk)
+    t0 = phase_time(11, t0)
     stream_cross_check(reduced_pipes(cfg, inputs), inputs)
+    t0 = phase_time(12, t0)
     synth_cli_phase()
+    t0 = phase_time(13, t0)
 
     # serving: phases 15 and 16, then 14 at the shapes they gave K1
     pipe = TTSPipeline.from_random(fixed_length(cfg, SERVE_TOKENS), seed=0,
@@ -3148,16 +3834,21 @@ def main() -> int:
     pipe.lm.to(torch.bfloat16)
     reqs = serve_requests(pipe, SERVE_SPECS)
     batch_launches, batch_seen = serve_batch_phase(pipe, reqs[:4], card)
+    t0 = phase_time(15, t0)
     hop_launches, hop_seen = serve_stream_phase(pipe, reqs, card)
+    t0 = phase_time(16, t0)
     record["launches_by_path"].update(serve_batch=batch_launches[0],
                                       **hop_launches)
     record["at_serving_shapes"] = serving_k1_phase(
         batch_seen, hop_seen, h, d, cfg.flow.unet.static_chunk_size)
+    t0 = phase_time(14, t0)
     serve_cli_phase()
     warm_phase(pipe, card)
     del pipe
     torch.cuda.empty_cache()
+    t0 = phase_time(17, t0)
     serve_cross_check(reduced_pipes(cfg, inputs))
+    t0 = phase_time(18, t0)
 
     # flow training: phase 19 at the shapes of phase 20's batch, then 20-22
     flow_cfg = TTSConfig().flow
@@ -3166,20 +3857,24 @@ def main() -> int:
     k2["at_flow_train_shapes"] = flow_k2_phase(
         (FLOW_BATCH, u.num_heads, fbatch["feat"].shape[1],
          u.attention_head_dim), [int(n) for n in fbatch["feat_len"]])
+    t0 = phase_time(19, t0)
     flow_rec = flow_train_phase(flow_cfg, fbatch, card)
     torch.cuda.empty_cache()
+    t0 = phase_time(20, t0)
     k2["launches_by_path"] = {"lm_train": k2["launches"],
                               "flow_train": flow_rec.pop("flow_train")}
     k2.update(flow_rec)
     cli_phase(model="flow")
+    t0 = phase_time(21, t0)
     flow_cross_check(flow_cfg, fbatch)
+    t0 = phase_time(22, t0)
 
-    # the mel output mode (HiFT): phases 23-27, each timed
+    # the mel output mode (HiFT): phases 23-27
     mel_cfg = dataclasses.replace(cfg, output_type="mel")
-    t0 = time.perf_counter()
     hift_rec = hift_phase(mel_cfg.hift, card)
     t0 = phase_time(23, t0)
-    pipe = TTSPipeline.from_random(mel_cfg, seed=0, device="cuda")
+    pipe = TTSPipeline.from_random(shallow_lm(mel_cfg), seed=0,
+                                   device="cuda")
     pipe.lm.to(torch.bfloat16)
     voice(pipe.hift, HIFT_SEED)
     record["launches_by_path"].update(mel_synthesis_phase(pipe, inputs,
@@ -3201,23 +3896,83 @@ def main() -> int:
     t0 = phase_time(27, t0)
 
     # the rest of LM training: phases 28-31, each timed
-    remat_rec = remat_phase(train_lm, batch, card)
+    remat_rec = remat_phase(train_lm, batch, card, off={
+        "step_s": lm_rec["step_s"], "peak_gib": lm_rec["peak_gib"],
+        "busy_ms": lm_rec["busy_ms"], "launches": lm_rec["launches"],
+        "per_step": lm_rec["launches_per_step"]})
     t0 = phase_time(28, t0)
     dbatch = dpo_batch(train_lm)
     dpo_rec = dpo_phase(train_lm, dbatch, card)
     t0 = phase_time(29, t0)
     dpo_cross_check(train_lm, dbatch)
     t0 = phase_time(30, t0)
-    cli_phase(dpo=True)
+    cli_phase(dpo=True, resume=False)
     cli_phase(remat="dots", resume=False)
-    lm_weights.cache_clear()
-    phase_time(31, t0)
+    t0 = phase_time(31, t0)
+
+    # training over two ranks: phases 32-34, each timed; world size 1
+    # runs here while the gang's ranks start, before the gang's first job
+    from minimax_speech_torch.utils.gang import Gang
+    backend = dist_backend()
+    gang = Gang(2, "chip_smoke", backend, "cuda")
+    initial = Path(__file__).resolve().parent / "build" / "dist_lm.pt"
+    try:
+        world1_phase(train_lm, batch)
+        # phase 7's weights (as lm_module asks for them: a cache hit),
+        # which the ranks read in place of running the initialiser
+        initial.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(lm_weights(remat_lm(train_lm, "off"), 0, None), initial)
+        lm_weights.cache_clear()
+        log(f"[time] phase 32, world size 1 with the ranks' start-up and "
+            f"the weights' file: {time.perf_counter() - t0:.1f} s")
+        dist_lm = dist_phase(gang, "lm", train_lm, batch, card, backend,
+                             weights=str(initial))
+        dist_dpo = dist_phase(
+            gang, "dpo", shallow_lm(TTSConfig()).lm,
+            {k: v[:DPO_CROSS_BATCH] for k, v in dbatch.items()}, card,
+            backend, meshes=((1, 2),), steps_n=2)
+        lens = [int(n) for n in batch["seq_len"]]
+        k2["at_dist_shapes"] = dist_k2_phase([
+            ("lm_tp2", (LM_BATCH, q.n_heads // 2, LM_PAD, q.head_dim),
+             lens, "causal"),
+            ("lm_dp2", (LM_BATCH // 2, q.n_heads, LM_PAD, q.head_dim),
+             lens[:LM_BATCH // 2], "causal")])
+        t0 = phase_time(32, t0)
+        dist_flow = dist_phase(gang, "flow", flow_cfg, fbatch, card, backend,
+                               symmetric=flow_symmetric(flow_cfg),
+                               steps_n=FLOW_DIST_STEPS)
+        t_f = fbatch["feat"].shape[1]
+        lens = [int(n) for n in fbatch["feat_len"]]
+        k2["at_dist_shapes"].update(dist_k2_phase([
+            ("flow_tp2", (FLOW_BATCH, u.num_heads // 2, t_f,
+                          u.attention_head_dim), lens, "full"),
+            ("flow_dp2", (FLOW_BATCH // 2, u.num_heads, t_f,
+                          u.attention_head_dim), lens[:FLOW_BATCH // 2],
+             "full")]))
+        t0 = phase_time(33, t0)
+    finally:
+        gang.close()
+        initial.unlink(missing_ok=True)
+    launch_rec = launch_phase(card, backend)
+    phase_time(34, t0)
     # totals over the timed steps, as lm_train's; per step beside them
     paths = {f"lm_train_remat_{m}": r for m, r in remat_rec.items()}
     paths.update({f"dpo_train_remat_{m}": r for m, r in dpo_rec.items()})
     k2["launches_by_path"].update({p: r["launches"] for p, r in
                                    paths.items()})
     k2["per_step_by_path"] = {p: r["per_step"] for p, r in paths.items()}
+    # per rank, over each run's steps
+    for rec in (dist_lm, dist_dpo, dist_flow):
+        k2["launches_by_path"].update({
+            p: int(sum(v.values()) * rec["steps"])
+            for p, v in rec["per_step"].items()})
+        k2["per_step_by_path"].update(rec["per_step"])
+    k2["launches_by_path"]["lm_train_cli_launch_tp2"] = \
+        launch_rec["launches"]
+    k2["per_step_by_path"]["lm_train_cli_launch_tp2"] = \
+        launch_rec["per_step"]
+    k2["dist_step_s_per_rank"] = {**dist_lm["step_s"],
+                                  **dist_flow["step_s"]}
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))
@@ -3228,4 +3983,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [CLI_WORKER]:
+        sys.exit(cli_worker(sys.argv[2:]))
     sys.exit(main())

@@ -10,6 +10,12 @@ chains of cli/train.py run:
   with the rejected plans under --dpo) or padding_flow (--model flow) ->
   prefetch
 
+and, for multi-process training (static shapes: every rank runs the same
+shapes each step), filter_static_shapes -> static_batch(drop_last) in
+place of dynamic_batch, and padding_llm(pad_to, pad_ref) or
+padding_flow(pad_tokens, pad_ref) at fixed pads; DataList partitions the
+items by data-parallel rank (`process_index` / `process_count`).
+
 and the other openers: parquet_opener (parquet shards of
 cli/data_tools.py make_parquet) and data/native_loader.py's
 native_file_opener. Stages are generator transformers, fn(iterable,
@@ -38,11 +44,18 @@ TOKEN_LATENT_RATIO = 2  # 50 Hz latents per 25 Hz token
 
 
 class DataList:
-    """The items, shuffled by a Random seeded with the epoch."""
+    """The items, shuffled by a Random seeded with the epoch, then (with
+    `partition`) every process_count-th from process_index. Multi-process
+    training partitions by data-parallel rank: the tensor-parallel peers
+    of one dp rank share its batches."""
 
-    def __init__(self, items: list, shuffle: bool = True):
+    def __init__(self, items: list, shuffle: bool = True,
+                 partition: bool = True, process_index: int = 0,
+                 process_count: int = 1):
         self.items = list(items)
         self.shuffle = shuffle
+        self.partition = partition
+        self.pi, self.pc = process_index, process_count
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -52,6 +65,8 @@ class DataList:
         data = list(self.items)
         if self.shuffle:
             random.Random(self.epoch).shuffle(data)
+        if self.partition:
+            data = data[self.pi::self.pc]
         for item in data:
             yield dict(item) if isinstance(item, dict) else {"src": item}
 
@@ -286,28 +301,91 @@ def dynamic_batch(data, max_frames_in_batch: int = 25000) -> Iterator[list]:
         yield buf
 
 
+def filter_static_shapes(data, model_kind: str, max_len: int,
+                         dpo: bool = False,
+                         use_spk: bool = True) -> Iterator[dict]:
+    """Static-shape mode: drop, before batching, every sample that
+    cannot fit the fixed pads (a late drop in the padding stages would
+    shrink one rank's batch below the others'): an LM plan longer than
+    max_len (sos + spk + text + task + speech; under dpo also a missing,
+    empty or over-long rejected one), a flow sample of more than max_len
+    tokens."""
+    overhead = 3 if use_spk else 2
+    dropped = 0
+    for s in data:
+        if model_kind == "llm":
+            n = len(s["text_token"]) + overhead
+            ok = n + len(s["speech_token"]) <= max_len
+            if dpo:
+                rej = s.get("reject_speech_token")
+                ok = ok and rej is not None and len(rej) > 0 \
+                    and n + len(rej) <= max_len
+        else:
+            ok = len(s["speech_token"]) <= max_len
+        if not ok:
+            dropped += 1
+            if dropped % 100 == 1:
+                logging.warning("filter_static_shapes: dropped %d samples "
+                                "that do not fit max_len=%d", dropped,
+                                max_len)
+            continue
+        yield s
+
+
+def static_batch(data, batch_size: int = 16,
+                 drop_last: bool = False) -> Iterator[list]:
+    """Batches of batch_size samples; drop_last (multi-process training)
+    drops the short last batch, whose shape the other ranks would not
+    share."""
+    buf = []
+    for s in data:
+        buf.append(s)
+        if len(buf) >= batch_size:
+            yield buf
+            buf = []
+    if buf and not drop_last:
+        yield buf
+
+
 def _bucket(n: int, multiple: int = 64) -> int:
     return max(((n + multiple - 1) // multiple) * multiple, multiple)
 
 
-def _pad_reference_mels(batch, bucket_multiple: int) -> dict:
-    rl = np.array([s["reference_mels"][0].shape[0] for s in batch], np.int32)
-    ref = np.zeros((len(batch), _bucket(int(rl.max()), bucket_multiple), 80),
+def _pad_reference_mels(batch, bucket_multiple: int,
+                        pad_ref: int | None = None) -> dict:
+    """The first reference mel of each sample, padded to a multiple of
+    bucket_multiple, or cut and padded to pad_ref frames."""
+    rl = np.array([min(s["reference_mels"][0].shape[0], pad_ref or 1 << 30)
+                   for s in batch], np.int32)
+    ref = np.zeros((len(batch),
+                    pad_ref or _bucket(int(rl.max()), bucket_multiple), 80),
                    np.float32)
     for i, s in enumerate(batch):
-        ref[i, : rl[i]] = s["reference_mels"][0]
+        ref[i, : rl[i]] = s["reference_mels"][0][: rl[i]]
     return {"reference_mel": ref, "reference_mel_len": rl}
 
 
 def padding_flow(batches, token_latent_ratio: int = TOKEN_LATENT_RATIO,
-                 bucket_multiple: int = 32) -> Iterator[dict]:
+                 bucket_multiple: int = 32, pad_tokens: int | None = None,
+                 pad_ref: int | None = None) -> Iterator[dict]:
     """Stage-2 flow batch: tokens padded to a multiple of
     `bucket_multiple`, target latents to token_latent_ratio x that, and
-    the reference mels padded to a multiple of `bucket_multiple`."""
+    the reference mels padded to a multiple of `bucket_multiple`. Fixed
+    pads (static shapes): tokens to pad_tokens (longer samples dropped
+    with a warning), reference mels cut and padded to pad_ref."""
     for batch in batches:
+        if pad_tokens is not None:
+            kept = [s for s in batch if len(s["speech_token"]) <= pad_tokens]
+            if len(kept) < len(batch):
+                logging.warning("padding_flow: dropped %d samples longer "
+                                "than pad_tokens=%d", len(batch) - len(kept),
+                                pad_tokens)
+            if not kept:
+                continue
+            batch = kept
         b = len(batch)
         tl = np.array([len(s["speech_token"]) for s in batch], np.int32)
-        tmax = _bucket(int(tl.max()), bucket_multiple)
+        tmax = pad_tokens or _bucket(int(tl.max()), bucket_multiple)
         token = np.zeros((b, tmax), np.int32)
         feat = np.zeros((b, tmax * token_latent_ratio, 80), np.float32)
         for i, s in enumerate(batch):
@@ -316,13 +394,14 @@ def padding_flow(batches, token_latent_ratio: int = TOKEN_LATENT_RATIO,
         out = {"token": token, "token_len": tl, "feat": feat,
                "feat_len": tl * token_latent_ratio}
         if "reference_mels" in batch[0]:
-            out.update(_pad_reference_mels(batch, bucket_multiple))
+            out.update(_pad_reference_mels(batch, bucket_multiple, pad_ref))
         yield out
 
 
 def padding_llm(batches, mix_ratio=(5, 15), use_spk: bool = True,
                 bucket_multiple: int = 64, bistream_prob: float = 0.5,
-                dpo: bool = False, eos: int = 6561, fill: int = 6563
+                dpo: bool = False, eos: int = 6561, fill: int = 6563,
+                pad_to: int | None = None, pad_ref: int | None = None
                 ) -> Iterator[dict]:
     """Stage-1 LM batch: the fixed-shape interleave plan (models/llm.py
     build_lm_plan) padded to a multiple of `bucket_multiple`, plus the
@@ -330,7 +409,10 @@ def padding_llm(batches, mix_ratio=(5, 15), use_spk: bool = True,
     without reject_speech_token are dropped with a warning, the bucket
     fits the longer of each sample's chosen and rejected plans, and the
     rejected plans follow at the same pad under `_rej`-suffixed keys,
-    with the chosen plans' bistream flags."""
+    with the chosen plans' bistream flags. Fixed pads (static shapes):
+    plans padded to pad_to (samples whose chosen or rejected plan is
+    longer dropped with a warning), reference mels cut and padded to
+    pad_ref."""
     for batch in batches:
         if dpo:
             kept = [s for s in batch if "reject_speech_token" in s]
@@ -352,14 +434,26 @@ def padding_llm(batches, mix_ratio=(5, 15), use_spk: bool = True,
 
         keys = ("speech_token", "reject_speech_token") if dpo \
             else ("speech_token",)
-        pad = _bucket(max(int(plan_for(k)["seq_len"].max()) for k in keys),
-                      bucket_multiple)
+        lens = np.max([plan_for(k)["seq_len"] for k in keys], axis=0)
+        if pad_to is None:
+            pad = _bucket(int(lens.max()), bucket_multiple)
+        else:
+            keep = [i for i in range(len(batch)) if lens[i] <= pad_to]
+            if len(keep) < len(batch):
+                logging.warning("padding_llm: dropped %d samples longer "
+                                "than pad_to=%d", len(batch) - len(keep),
+                                pad_to)
+            if not keep:
+                continue
+            batch = [batch[i] for i in keep]
+            flags = [flags[i] for i in keep]
+            pad = pad_to
         out = plan_for("speech_token", pad)
         if dpo:
             out.update({k + "_rej": v for k, v in
                         plan_for("reject_speech_token", pad).items()})
         if "reference_mels" in batch[0]:
-            out.update(_pad_reference_mels(batch, 32))
+            out.update(_pad_reference_mels(batch, 32, pad_ref))
         yield out
 
 

@@ -23,6 +23,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from minimax_speech_torch.parallel.collectives import all_gather_cat
+from minimax_speech_torch.utils import losses
+
 
 @dataclass(frozen=True)
 class CFMConfig:
@@ -55,11 +58,20 @@ class CFMDraws:
     before the cosine schedule; cand (B, k, T, D) standard normal noise
     candidates (k = 1 without immiscible noise); keep (B,) the CFG
     dropout's keep mask (1.0 or 0.0); perm (B,) a permutation of
-    range(B) before the derangement's fix-up."""
+    range(B) before the derangement's fix-up; row0 the global index of
+    the first row (`rows`)."""
     t: torch.Tensor
     cand: torch.Tensor
     keep: torch.Tensor
     perm: torch.Tensor
+    row0: int = 0
+
+    def rows(self, start: int, n: int) -> "CFMDraws":
+        """The draws of rows [start, start + n) of the global batch; perm
+        stays the global batch's, and row0 marks where these rows sit."""
+        return CFMDraws(self.t[start:start + n], self.cand[start:start + n],
+                        self.keep[start:start + n], self.perm,
+                        self.row0 + start)
 
 
 def make_draws(cfg: CFMConfig, b: int, t: int, d: int,
@@ -94,11 +106,16 @@ def derangement(perm: torch.Tensor) -> torch.Tensor:
 def compute_loss(estimator: Callable, x1: torch.Tensor, mask: torch.Tensor,
                  mu: torch.Tensor, spks: torch.Tensor, cond: torch.Tensor,
                  cfg: CFMConfig, draws: CFMDraws,
-                 streaming: bool = False) -> torch.Tensor:
+                 streaming: bool = False, group=None) -> torch.Tensor:
     """The OT-CFM loss (contrastive with cfg.use_contrastive_fm).
     x1, mu, cond: (B, T, D); mask: (B, T) float; spks: (B, D);
     `estimator(x, mask, mu, t, spks, cond, streaming=)` returns the
-    velocity. The loss averages over mask.sum() * D."""
+    velocity. The loss averages over mask.sum() * D. group: the
+    data-parallel group the global batch is split over, these rows its
+    rows [draws.row0, draws.row0 + B): the denominator is the global
+    batch's and each row's contrastive negative the target velocity of
+    its deranged row of the global batch (gathered over the group), so
+    the result is this rank's share of the global batch's loss."""
     d = x1.shape[-1]
     t = draws.t.to(x1.dtype)[:, None, None]
     if cfg.t_scheduler == "cosine":
@@ -114,11 +131,15 @@ def compute_loss(estimator: Callable, x1: torch.Tensor, mask: torch.Tensor,
         cond = cond * keep[:, None, None]
     pred = estimator(y, mask, mu, t[:, 0, 0], spks, cond, streaming=streaming)
     m = mask[..., None]
-    denom = mask.sum() * d
+    denom = losses.global_count(mask.sum(), group) * d
     pos_loss = (((pred - u_pos) * m) ** 2).sum() / denom
     if not cfg.use_contrastive_fm:
         return pos_loss
-    u_neg = u_pos[derangement(draws.perm)]
+    b = x1.shape[0]
+    pairs = derangement(draws.perm)[draws.row0:draws.row0 + b]
+    # u_pos holds no parameter: the gather needs no gradient
+    u_all = u_pos if group is None else all_gather_cat(u_pos, group, 0)
+    u_neg = u_all[pairs]
     neg_loss = (((pred - u_neg) * m) ** 2).sum() / denom
     return pos_loss - cfg.contrastive_lambda * neg_loss
 

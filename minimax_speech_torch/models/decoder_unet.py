@@ -178,7 +178,8 @@ class UNetTransformerBlock(nn.Module):
                 name: str = ""):
         b, t, _ = x.shape
         h = self.norm1(x)
-        q, k, v = (proj(h).view(b, t, self.num_heads, self.head_dim)
+        # the heads this rank holds: all, or its tensor-parallel share
+        q, k, v = (proj(h).view(b, t, -1, self.head_dim)
                    for proj in (self.to_q, self.to_k, self.to_v))
         if state is not None and state.mode == "chunk":
             cached = state.cache[name].to(k.dtype)

@@ -95,6 +95,13 @@ class FlowDraws:
     frac: torch.Tensor
     cfm: cfm.CFMDraws
 
+    def rows(self, start: int, n: int) -> "FlowDraws":
+        """The draws of rows [start, start + n) of the global batch (a
+        data-parallel rank's share; the derangement stays global)."""
+        return FlowDraws(self.use_cond[start:start + n],
+                         self.frac[start:start + n],
+                         self.cfm.rows(start, n))
+
 
 def make_flow_draws(cfg: FlowConfig, b: int, t_feat: int,
                     generator: torch.Generator) -> FlowDraws:
@@ -176,10 +183,14 @@ class FlowModel(nn.Module):
         return self.spk_embed_affine_layer(embedding)
 
     def forward(self, token, token_len, feat, feat_len, embedding,
-                draws: FlowDraws, streaming: bool = False) -> torch.Tensor:
+                draws: FlowDraws, streaming: bool = False,
+                group=None) -> torch.Tensor:
         """The training loss. token: (B, Tt) FSQ tokens; feat: (B, 2*Tt,
         80) raw target latents; embedding: (B, 192) normalized speaker
-        embedding. streaming: chunk masks in the encoder and the UNet."""
+        embedding. streaming: chunk masks in the encoder and the UNet.
+        group: the data-parallel group the global batch is split over
+        (draws.rows gave this rank's draws); the loss is then this rank's
+        share of the global batch's (cfm.compute_loss)."""
         c = self.cfg
         spks = self.spk_embed_affine_layer(embedding)
         feat = latent_normalize(c, feat)
@@ -193,7 +204,8 @@ class FlowModel(nn.Module):
         cond_mask = (pos < idx[:, None]) & draws.use_cond[:, None]
         conds = feat * cond_mask[..., None].to(feat.dtype)
         return cfm.compute_loss(self.estimate, feat, mask, mu, spks, conds,
-                                c.cfm, draws.cfm, streaming=streaming)
+                                c.cfm, draws.cfm, streaming=streaming,
+                                group=group)
 
     def prepare_inference(self, token, token_len, prompt_feat, embedding,
                           streaming: bool = False, finalize: bool = True,

@@ -119,17 +119,21 @@ class SpeechLM(nn.Module):
         """External (B, 192) x-vector -> (B, C)."""
         return self.spk_embed_affine_layer(l2_normalize(embedding))
 
-    def forward(self, src_type, tok_id, target, seq_len, spk_emb):
+    def forward(self, src_type, tok_id, target, seq_len, spk_emb,
+                group=None):
         """Training forward from plan tensors: src_type/tok_id/target
-        (B, L), seq_len (B,), spk_emb (B, C). Returns (loss, accuracy)."""
+        (B, L), seq_len (B,), spk_emb (B, C). Returns (loss, accuracy);
+        with `group`, the data-parallel group the global batch is split
+        over, this rank's shares of the global batch's (utils/losses.py)."""
         emb = self.embed_plan(src_type, tok_id, spk_emb)
         b, t = src_type.shape
         positions = torch.arange(t, device=emb.device)[None].expand(b, t)
         hidden = self.llm(emb, positions, None, lengths=seq_len)
         logits = self.llm_decoder(hidden)
         loss = losses.label_smoothing_ce(logits, target, self.cfg.lsm_weight,
-                                         self.cfg.length_normalized_loss)
-        return loss, losses.accuracy(logits, target)
+                                         self.cfg.length_normalized_loss,
+                                         group=group)
+        return loss, losses.accuracy(logits, target, group=group)
 
     def sequence_logp(self, src_type, tok_id, target, seq_len, spk_emb):
         """The training forward's summed log-probability of each plan's

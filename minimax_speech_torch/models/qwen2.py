@@ -219,10 +219,13 @@ class Qwen2Attention(nn.Module):
         None, `lengths` (B,) selects the training attention (K2)."""
         c = self.cfg
         b, t, _ = x.shape
-        h, kvh, d = c.n_heads, c.n_kv_heads, c.head_dim
-        q = self.q_proj(x).view(b, t, h, d)
-        k = self.k_proj(x).view(b, t, kvh, d)
-        v = self.v_proj(x).view(b, t, kvh, d)
+        d = c.head_dim
+        # the heads this rank holds: all, or its tensor-parallel share
+        # (whole q heads and the kv heads they read)
+        q = self.q_proj(x).view(b, t, -1, d)
+        k = self.k_proj(x).view(b, t, -1, d)
+        v = self.v_proj(x).view(b, t, -1, d)
+        h, kvh = q.shape[2], k.shape[2]
 
         cos, sin = rope_ops.rope_cos_sin(
             0, d, c.rope_theta, positions=positions.reshape(-1).float(),

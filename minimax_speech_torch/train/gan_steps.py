@@ -7,6 +7,12 @@ and through a frozen reference policy (a second SpeechLM, without grad),
 and one backward, through the port's optimizer as the LM step does
 (steps.backward_and_update). The JAX step has no bf16 route, nor does
 this one.
+
+Under a mesh the reference policy is sharded as the policy is: the caller
+puts it on its tensor-parallel slices (parallel.layers.shard_module with
+the "lm" rules), so each rank holds a tp share of it. The loss and the
+metrics are this rank's shares of the global batch's pairs, as the LM
+step's (utils/losses.py).
 """
 from __future__ import annotations
 
@@ -52,15 +58,20 @@ def make_dpo_step(model, ref_model, beta: float = 0.01,
     ref_model.requires_grad_(False).eval()
 
     def step(state: steps.TrainState, batch):
+        group = state.dp_group
         with torch.no_grad():
             ref_chosen, ref_rej = _seq_logps(ref_model, batch)
         chosen, rej = _seq_logps(model, batch)
         loss, cr, rr = losses.dpo_loss(chosen, rej, ref_chosen, ref_rej,
-                                       beta, label_smoothing, ipo)
+                                       beta, label_smoothing, ipo,
+                                       group=group)
         steps.backward_and_update(state, loss)
-        return state, {"dpo/loss": loss.detach(),
-                       "dpo/chosen_reward": cr.detach().mean(),
-                       "dpo/rejected_reward": rr.detach().mean(),
-                       "dpo/reward_acc": (cr > rr).float().mean()}
+        n = losses.global_count(torch.tensor(cr.shape[0], device=cr.device),
+                                group)
+        return state, steps.dp_sum(state, {
+            "dpo/loss": loss.detach(),
+            "dpo/chosen_reward": cr.detach().sum() / n,
+            "dpo/rejected_reward": rr.detach().sum() / n,
+            "dpo/reward_acc": (cr > rr).float().sum() / n})
 
     return step

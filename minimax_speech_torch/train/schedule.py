@@ -15,6 +15,14 @@ returns an `Optimizer` that applies, in optax's order and arithmetic:
   AdamW         b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias
                 correction by the update count, then weight decay
                 `weight_decay * p` added to the update, then -lr(count).
+
+Under a dp x tp mesh (parallel/mesh.py) the state is ZeRO-2's: each dp
+rank keeps mu, nu and the accumulation buffer for its slice of each leaf
+only (LeafLayout.zero_dim), updates that slice of the parameter from the
+gradient (whole on every dp rank: the step all-reduces it) and
+all-gathers the parameter over dp. The clip's norm is the global batch's
+over the whole model: tp-split leaves summed over tp, replicated ones
+counted once, dp slices summed over dp.
 """
 from __future__ import annotations
 
@@ -22,7 +30,11 @@ import math
 from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
+
+from minimax_speech_torch.parallel.collectives import gather_zero, zero_slice
 
 Schedule = Callable[[int], float]
 B1, B2, EPS = 0.9, 0.999, 1e-8  # AdamW's moment decays and epsilon
@@ -161,9 +173,38 @@ class OptState:
                    int(d["mini_step"]), list(d["acc"]))
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of every element squared."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+def global_norm(tensors, layouts=None, mesh=None,
+                zero_sliced: bool = False) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of every element squared. Under
+    a mesh, of the whole leaves that `tensors` (aligned with `layouts`)
+    are this rank's slices of: tp slices, and with zero_sliced ZeRO-2
+    slices of those."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+    return global_norms(tensors, [range(len(tensors))], layouts, mesh,
+                        zero_sliced)[0]
+
+
+def global_norms(tensors, subsets, layouts, mesh,
+                 zero_sliced: bool = False) -> torch.Tensor:
+    """The global norm of each subset (indices into `tensors`) of the
+    whole leaves, as global_norm takes them, in two small all-reduces."""
+    sq = torch.stack([torch.sum(t * t) for t in tensors])
+    # row: 2 * (split over tp) + (a ZeRO-2 slice)
+    rows = [2 * (lay.tp_dim is not None)
+            + (zero_sliced and lay.zero_dim is not None) for lay in layouts]
+    pick = np.zeros((4, len(subsets), len(tensors)), np.float32)
+    for j, idx in enumerate(subsets):
+        for i in idx:
+            pick[rows[i], j, i] = 1.0
+    parts = torch.from_numpy(pick).to(sq) @ sq             # (4, subsets)
+    dp_part = parts[1::2].contiguous()  # the ZeRO-2 slices: summed over dp
+    if mesh.dp_group is not None:
+        dist.all_reduce(dp_part, group=mesh.dp_group)
+    tp_part = (parts[2] + dp_part[1]).contiguous()   # tp slices: over tp
+    if mesh.tp_group is not None:
+        dist.all_reduce(tp_part, group=mesh.tp_group)
+    return torch.sqrt(parts[0] + dp_part[0] + tp_part)
 
 
 @dataclass(frozen=True)
@@ -173,16 +214,26 @@ class Optimizer:
     weight_decay: float = 0.0
     accum_steps: int = 1
 
-    def init(self, params) -> OptState:
-        zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
+    def init(self, params, layouts=None, mesh=None) -> OptState:
+        """Zero moments (and accumulation buffer): under a mesh, for this
+        dp rank's ZeRO-2 slice of each leaf."""
+        shards = [zero_slice(p, lay, mesh) for p, lay in
+                  zip(params, layouts or [None] * len(params))]
+        zeros = lambda: [torch.zeros_like(s) for s in shards]  # noqa: E731
         return OptState(0, zeros(), zeros(), 0,
                         zeros() if self.accum_steps > 1 else [])
 
     @torch.no_grad()
-    def apply(self, params: list, grads: list, state: OptState) -> bool:
+    def apply(self, params: list, grads: list, state: OptState,
+              layouts=None, mesh=None) -> bool:
         """Update `params` in place from `grads` (fp32, aligned with
         params). Returns whether an update was applied (False on the
-        micro-steps of accumulation)."""
+        micro-steps of accumulation). Under a mesh the gradients are the
+        global batch's, whole over dp; this rank updates its ZeRO-2 slice
+        of each leaf, then the slices are all-gathered over dp."""
+        if mesh is not None:
+            grads = [zero_slice(g, lay, mesh)
+                     for g, lay in zip(grads, layouts)]
         if self.accum_steps > 1:
             n = state.mini_step
             for a, g in zip(state.acc, grads):
@@ -194,7 +245,7 @@ class Optimizer:
             for a in state.acc:
                 a.zero_()
             state.mini_step = 0
-        norm = global_norm(grads)
+        norm = global_norm(grads, layouts, mesh, zero_sliced=True)
         keep = norm < self.grad_clip  # selected on the device: no sync
         grads = [torch.where(keep, g, (g / norm) * self.grad_clip)
                  for g in grads]
@@ -202,13 +253,16 @@ class Optimizer:
         c1 = 1.0 - B1 ** count
         c2 = 1.0 - B2 ** count
         lr = float(self.schedule(state.count))
-        for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+        shards = params if mesh is None else [
+            zero_slice(p, lay, mesh) for p, lay in zip(params, layouts)]
+        for p, g, mu, nu in zip(shards, grads, state.mu, state.nu):
             mu.copy_((1 - B1) * g + B1 * mu)
             nu.copy_((1 - B2) * (g * g) + B2 * nu)
             u = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
             if self.weight_decay:
                 u = u + self.weight_decay * p
             p.add_(u * -lr)
+        gather_zero(params, layouts, mesh)
         state.count = count
         return True
 

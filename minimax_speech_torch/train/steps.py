@@ -12,16 +12,33 @@ float32 parameters (torch.func.functional_call), with the batch's float
 tensors cast too, so the gradients land on the float32 masters, as the
 JAX package's cast of the parameter tree does. Norms and softmax still
 accumulate in float32 inside the modules.
+
+Under a dp x tp mesh (make_train_state(..., mesh, kind)), one process per
+rank: the module holds this rank's tensor-parallel slices, the batch is
+this dp rank's share of the global batch, and each loss is this rank's
+share of the global batch's (its numerator over the global denominator,
+utils/losses.py), so the gradients all-reduced (summed) over dp are the
+global batch's. The replicated biases of column-parallel layers have
+their gradients summed over tp first. The optimizer keeps ZeRO-2 slices
+(train/schedule.py); the metrics are the global batch's, the norms the
+whole model's. The all-reduce stands where ZeRO-2 proper reduce-scatters:
+gloo takes no reduce-scatter of CUDA tensors, and one card's two-rank
+runs go through gloo.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from minimax_speech_torch.parallel.collectives import all_reduce_buckets
+from minimax_speech_torch.parallel.layers import shard_module
+from minimax_speech_torch.parallel.mesh import Mesh
 from minimax_speech_torch.train.schedule import (OptState, Optimizer,
-                                                 global_norm)
+                                                 global_norm, global_norms)
 from minimax_speech_torch.utils.device import check_on, resolve_device
 from minimax_speech_torch.utils.params_io import named_flax_params
 
@@ -36,31 +53,66 @@ FLOW_NORM_GROUPS = {"encoder": "encoder", "estimator": "estimator"}
 class TrainState:
     """module (its parameters are the float32 masters), optimizer, its
     state, and the count of steps taken (micro-steps under
-    accumulation)."""
+    accumulation); under a mesh, the mesh and each parameter's
+    parallel.mesh.LeafLayout."""
     module: nn.Module
     optimizer: Optimizer
     opt_state: OptState
     step: int = 0
+    mesh: Optional[Mesh] = None
+    layouts: Optional[list] = None
 
     def params(self) -> list:
         """The parameters in the optimizer state's order."""
         return [p for _, p in named_flax_params(self.module)]
 
+    @property
+    def dp_group(self):
+        """The group the global batch is split over (None: whole)."""
+        return None if self.mesh is None else self.mesh.dp_group
 
-def make_train_state(module: nn.Module, optimizer: Optimizer) -> TrainState:
-    return TrainState(module, optimizer, optimizer.init(
-        [p for _, p in named_flax_params(module)]))
+
+def make_train_state(module: nn.Module, optimizer: Optimizer,
+                     mesh: Optional[Mesh] = None,
+                     kind: str = "lm") -> TrainState:
+    """The state of `module`. With a mesh (parallel.mesh.make_mesh),
+    `module`, holding the full weights, is put in place on this rank's
+    tensor-parallel slices under the `kind` rules ("lm", "llm" or
+    "flow"), and the optimizer's state on its ZeRO-2 slices."""
+    layouts = None if mesh is None else shard_module(module, mesh, kind)
+    params = [p for _, p in named_flax_params(module)]
+    return TrainState(module, optimizer,
+                      optimizer.init(params, layouts, mesh), mesh=mesh,
+                      layouts=layouts)
 
 
-def grad_norms_by_component(named_grads, groups: dict[str, str]) -> dict:
+def grad_norms_by_component(named_grads, groups: dict[str, str],
+                            layouts=None, mesh=None) -> dict:
     """L2 norm per named component; groups maps name -> a substring of
-    the parameter's flax path."""
+    the parameter's flax path. Under a mesh, of the whole leaves."""
+    if mesh is not None:
+        subsets = [[i for i, (path, _) in enumerate(named_grads)
+                    if needle in path] for needle in groups.values()]
+        norms = global_norms([g for _, g in named_grads], subsets, layouts,
+                             mesh)
+        return {f"grad_norm/{name}": n for name, n in zip(groups, norms)}
     out = {}
     for name, needle in groups.items():
         sel = [g for path, g in named_grads if needle in path]
         out[f"grad_norm/{name}"] = global_norm(sel) if sel \
             else torch.zeros(())
     return out
+
+
+def dp_sum(state: TrainState, metrics: dict) -> dict:
+    """Metrics that are this rank's shares of the global batch's, summed
+    over dp in one all-reduce (as they are without a mesh)."""
+    group = state.dp_group
+    if group is None:
+        return metrics
+    vals = torch.stack([v.detach().float() for v in metrics.values()])
+    dist.all_reduce(vals, group=group)
+    return dict(zip(metrics, vals.unbind()))
 
 
 def speaker_of(model, batch: dict):
@@ -91,10 +143,10 @@ class _LMLoss(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, batch: dict):
+    def forward(self, batch: dict, group=None):
         m = self.model
         return m(batch["src_type"], batch["tok_id"], batch["target"],
-                 batch["seq_len"], speaker_of(m, batch))
+                 batch["seq_len"], speaker_of(m, batch), group=group)
 
 
 class _FlowLoss(nn.Module):
@@ -107,7 +159,8 @@ class _FlowLoss(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, batch: dict, draws, streaming: bool = False):
+    def forward(self, batch: dict, draws, streaming: bool = False,
+                group=None):
         m = self.model
         if "reference_mel" in batch:
             emb = m.embed_speaker(batch["reference_mel"],
@@ -117,7 +170,8 @@ class _FlowLoss(nn.Module):
         else:
             emb = batch["embedding"]
         return m(batch["token"], batch["token_len"], batch["feat"],
-                 batch["feat_len"], emb, draws, streaming=streaming)
+                 batch["feat_len"], emb, draws, streaming=streaming,
+                 group=group)
 
 
 def _cast_floats(batch: dict, dtype) -> dict:
@@ -141,16 +195,19 @@ def _loss_fn(wrapper: nn.Module, model, bf16: bool):
 
 
 def make_lm_loss_fn(model, bf16: bool = False):
-    """loss_fn(batch) -> (loss, acc): batch holds the plan tensors
-    (src_type, tok_id, target, seq_len) and reference_mel (+
-    reference_mel_len) or spk_emb, on the model's device."""
+    """loss_fn(batch, group=None) -> (loss, acc): batch holds the plan
+    tensors (src_type, tok_id, target, seq_len) and reference_mel (+
+    reference_mel_len) or spk_emb, on the model's device; with `group`,
+    this rank's shares of the global batch's."""
     return _loss_fn(_LMLoss(model), model, bf16)
 
 
 def make_flow_loss_fn(model, bf16: bool = False):
-    """loss_fn(batch, draws, streaming=False) -> loss: batch holds token,
-    token_len, feat, feat_len and reference_mel (+ reference_mel_len) or
-    embedding, on the model's device; draws a models.flow.FlowDraws."""
+    """loss_fn(batch, draws, streaming=False, group=None) -> loss: batch
+    holds token, token_len, feat, feat_len and reference_mel (+
+    reference_mel_len) or embedding, on the model's device; draws a
+    models.flow.FlowDraws (this rank's rows of the global batch's, with
+    `group`, and then the loss is this rank's share)."""
     return _loss_fn(_FlowLoss(model), model, bf16)
 
 
@@ -164,9 +221,9 @@ def make_lm_train_step(model, bf16: bool = False, device=None):
     names = [path for path, _ in named_flax_params(model)]
 
     def step(state: TrainState, batch):
-        loss, acc = loss_fn(batch)
-        return state, {**_apply(state, loss, names, LM_NORM_GROUPS),
-                       "acc": acc.detach()}
+        loss, acc = loss_fn(batch, group=state.dp_group)
+        return state, _apply(state, loss, names, LM_NORM_GROUPS,
+                             acc=acc.detach())
 
     return step
 
@@ -184,7 +241,8 @@ def make_flow_train_step(model, bf16: bool = False, device=None,
     names = [path for path, _ in named_flax_params(model)]
 
     def step(state: TrainState, batch, draws):
-        loss = loss_fn(batch, draws, streaming=streaming)
+        loss = loss_fn(batch, draws, streaming=streaming,
+                       group=state.dp_group)
         return state, _apply(state, loss, names, FLOW_NORM_GROUPS)
 
     return step
@@ -193,20 +251,38 @@ def make_flow_train_step(model, bf16: bool = False, device=None,
 def backward_and_update(state: TrainState, loss) -> list:
     """Backward of `loss` into the state's parameters, the optimizer's
     update (clip, accumulation, AdamW; it leaves the gradients as they
-    are) and one step on the counter. Returns the gradients, zeros where
-    a parameter gets none."""
-    params = state.params()
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
-    state.optimizer.apply(params, grads, state.opt_state)
+    are) and one step on the counter. Returns the gradients (`gradients`).
+    """
+    grads = gradients(state, loss)
+    state.optimizer.apply(state.params(), grads, state.opt_state,
+                          state.layouts, state.mesh)
     state.step += 1
     return grads
 
 
-def _apply(state: TrainState, loss, names, groups) -> dict:
-    """backward_and_update; returns loss, grad_norm and
-    grad_norm/<component>."""
+def gradients(state: TrainState, loss) -> list:
+    """The gradients of `loss` (this rank's share under a mesh) for the
+    state's parameters, zeros where a parameter gets none; under a mesh
+    the global batch's: summed over dp (the partial ones over tp
+    first), each whole over dp and this rank's slice over tp."""
+    params = state.params()
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    mesh = state.mesh
+    if mesh is not None:
+        all_reduce_buckets([g for g, lay in zip(grads, state.layouts)
+                            if lay.partial], mesh.tp_group)
+        all_reduce_buckets(grads, mesh.dp_group)
+    return grads
+
+
+def _apply(state: TrainState, loss, names, groups, **shares) -> dict:
+    """backward_and_update; returns loss (and the other `shares` of the
+    global batch's metrics), grad_norm and grad_norm/<component>."""
     grads = backward_and_update(state, loss)
-    return {"loss": loss.detach(), "grad_norm": global_norm(grads),
-            **grad_norms_by_component(list(zip(names, grads)), groups)}
+    mesh, lay = state.mesh, state.layouts
+    return {**dp_sum(state, {"loss": loss.detach(), **shares}),
+            "grad_norm": global_norm(grads, lay, mesh),
+            **grad_norms_by_component(list(zip(names, grads)), groups, lay,
+                                      mesh)}

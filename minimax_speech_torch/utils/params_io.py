@@ -31,10 +31,12 @@ from torch import nn
 SEP = "||"
 
 
-def save_params(path: str, module: nn.Module):
-    """Write `module`'s weights as flax-layout `{"params": ...}` .npz."""
+def save_params(path: str, module: nn.Module, tensors=None):
+    """Write `module`'s weights as flax-layout `{"params": ...}` .npz;
+    `tensors`, in named_flax_params order, stand in for its parameters
+    (the whole tensors of a tensor-parallel module's slices)."""
     np.savez(path, **{SEP.join(("params",) + p): a
-                      for p, a in _to_flax(module).items()})
+                      for p, a in _to_flax(module, tensors).items()})
 
 
 def save_tree(path: str, tree: dict):
@@ -75,6 +77,11 @@ def _leaf(mod: nn.Module, pname: str):
     return ident
 
 
+def flax_leaf_name(mod: nn.Module, pname: str) -> str:
+    """The flax name of `mod`'s parameter `pname`."""
+    return _leaf(mod, pname)[0]
+
+
 def _params_with_paths(module: nn.Module):
     for mname, mod in module.named_modules():
         prefix = tuple(mname.split(".")) if mname else ()
@@ -105,9 +112,11 @@ def _numpy(p: torch.Tensor) -> np.ndarray:
     return (p.float() if p.is_floating_point() else p).numpy()
 
 
-def _to_flax(module: nn.Module) -> dict:
-    return {path: np.ascontiguousarray(to_flax(_numpy(p)))
-            for path, p, _, to_flax in _params_with_paths(module)}
+def _to_flax(module: nn.Module, tensors=None) -> dict:
+    leaves = list(_params_with_paths(module))
+    tensors = [p for _, p, _, _ in leaves] if tensors is None else tensors
+    return {path: np.ascontiguousarray(to_flax(_numpy(t)))
+            for (path, _, _, to_flax), t in zip(leaves, tensors)}
 
 
 def to_flax_params(module: nn.Module) -> dict:

@@ -138,8 +138,12 @@ def test_chip_smoke_imports_no_jax():
         "import sys; sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "import minimax_speech_torch.cli.train, "
+        "minimax_speech_torch.cli.launch, "
         "minimax_speech_torch.kernels.splash, "
-        "minimax_speech_torch.train.steps\n"
+        "minimax_speech_torch.parallel.layers, "
+        "minimax_speech_torch.train.steps, "
+        "minimax_speech_torch.utils.distributed, "
+        "minimax_speech_torch.utils.gang\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'minimax_speech_tpu')]\n"

@@ -20,6 +20,7 @@ import torch
 from minimax_speech_torch.cli import train as t_cli
 from minimax_speech_torch.data import pipeline as t_dp
 from minimax_speech_torch.infer import frontend as t_fe
+from minimax_speech_torch.parallel import mesh as t_mesh
 from minimax_speech_tpu.data import pipeline as j_dp
 from minimax_speech_tpu.infer import frontend as j_fe
 from tests.test_train_cli import make_corpus
@@ -85,12 +86,21 @@ def test_byte_tokenizer_and_unported_paths(tmp_path):
         return t_cli.parse_args([*extra, "--train_data", "x",
                                  "--model_dir", "y"])
 
-    for extra in (["--model", "llm", "--distributed"],
-                  ["--model", "flow", "--distributed"],
-                  ["--model", "llm", "--tp", "2"],
-                  ["--model", "flow", "--dp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # one process drives one GPU: --dp/--tp > 1 need --distributed ranks
+    # (cli/launch.py), and --distributed needs its rendezvous
+    for extra in (["--model", "llm", "--tp", "2"],
+                  ["--model", "flow", "--dp", "2"],
+                  ["--model", "llm", "--distributed"],
+                  ["--model", "flow", "--distributed", "--tp", "2"]):
+        with pytest.raises(ValueError, match="launch|--coordinator"):
             t_cli.check_ported(args(*extra))
+    t_cli.check_ported(args("--model", "llm", "--distributed", "--tp", "2",
+                            "--coordinator", "127.0.0.1:1",
+                            "--num_processes", "2", "--process_id", "0"))
+    # dp x tp must be the world size (1 outside torch.distributed)
+    for dp, tp in ((2, 1), (1, 2), (2, 2)):
+        with pytest.raises(ValueError, match="world size"):
+            t_mesh.make_mesh(dp, tp)
     t_cli.check_ported(args("--model", "llm", "--dpo"))
     with pytest.raises(ValueError, match="--model llm"):
         t_cli.check_ported(args("--model", "flow", "--dpo"))
