@@ -193,6 +193,29 @@ a line; any failure ends the run with a non-zero exit:
      512), then a second gang that
      resumes at the saved step and writes --export_npz, which the port
      loads; K2's launches per step per rank asserted.
+ 35. DAC-VAE GAN training (train/gan_steps.make_dac_steps) at the full
+     width of configs/default.yaml against the default DACDiscriminator
+     (random weights, seed 0, fp32, TF32 off, AdamW 1e-4, fixed draws) on
+     the CLI's batch, 64 crops of 0.38 s: a warm-up and GAN_ITERS timed
+     iterations (median step_s of the disc and gen halves, audio seconds
+     per second, peak memory), one profiled iteration (busy time; the
+     shares of convolutions, GEMMs and FFTs; the host's idle share); K1
+     and K2 launched 0 times;
+ 36. the same for HiFT against the default CosyVoiceDiscriminator on 16
+     crops of 1.02 s with their host mel and YIN pitch;
+ 37. one DAC and one HiFT iteration at reduced width (reduced_gan),
+     card against CPU with the same weights, batch and draws: phase 9's
+     checks on the metrics, every leaf's gradient and the parameters
+     after the step; S3TokenizerV1 (default width) over a 70 s mel, its
+     3 windows in one batch: codes identical or a tie (V1_TIE_RTOL),
+     quantize_long's merged tokens likewise;
+ 38. the CLIs on a written corpus: train_dac and train_hift
+     (--train_data --with_pitch) for 2 iterations at full width and
+     their default batches, then a resume for a third (the DAC's with
+     --export_npz, which the port loads); extract_fsq v2 (a 35 s file
+     over two windows) and v1_25hz, extract_dac_latents with the export
+     (latent_stats.json), extract_embedding, eval_dac on the export (its
+     JSON printed); K1 and K2 launched 0 times.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -1753,7 +1776,8 @@ def _train_state(module, device, seed=0):
 
 def profile_step(run_step, what: str = "one train step") -> dict:
     """`what` under torch.profiler: device busy time against the host's
-    wall time, the shares of K2, GEMMs and convolutions in the busy time,
+    wall time, the shares of K2, GEMMs, convolutions and FFTs in the busy
+    time,
     and the kernels that take the most. Returns those numbers, or {} when
     the profiler sees no device time."""
     import torch
@@ -1790,18 +1814,19 @@ def profile_step(run_step, what: str = "one train step") -> dict:
     k2_ms = share(lambda n: "splash_" in n)
     conv_ms = share(is_conv)
     gemm_ms = share(lambda n: "gemm" in n and not is_conv(n))
+    fft_ms = share(lambda n: "fft" in n)
     top = sorted(kernels, key=lambda x: -x[1])[:8]
     log(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), K2 "
         f"kernels {k2_ms:.2f} ms ({k2_ms / busy_ms:.3f} of busy), GEMMs "
         f"{gemm_ms:.2f} ms ({gemm_ms / busy_ms:.3f}), convolutions "
-        f"{conv_ms:.2f} ms ({conv_ms / busy_ms:.3f}), {len(kernels)} kernel "
-        f"names")
+        f"{conv_ms:.2f} ms ({conv_ms / busy_ms:.3f}), FFTs {fft_ms:.2f} ms "
+        f"({fft_ms / busy_ms:.3f}), {len(kernels)} kernel names")
     for name, us, n in top:
         log(f"[profile]   {us / 1e3:8.2f} ms x{n:<5d} {name[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms, "k2_ms": k2_ms,
-            "gemm_ms": gemm_ms, "conv_ms": conv_ms}
+            "gemm_ms": gemm_ms, "conv_ms": conv_ms, "fft_ms": fft_ms}
 
 
 def train_main_path(model, state, make_step, args, final_loss, per_step,
@@ -2108,8 +2133,8 @@ def grad_errors(grads, ref, symmetric=()) -> dict:
 
 
 def compare_training(runs, device, steps_n, tag, what, symmetric=(),
-                     k2_leaves=(), truth=None):
-    """Phases 9 and 22: the runs on `device` and on the CPU, {dev:
+                     k2_leaves=(), truth=None, loss_key="loss"):
+    """Phases 9, 22 and 37: the runs on `device` and on the CPU, {dev:
     (metrics per step, first-step gradients, parameters after steps_n
     steps)}, held to the TRAIN_* limits. `symmetric`: parameter names
     whose gradient is 0 by symmetry, so both sides hold rounding only:
@@ -2153,9 +2178,9 @@ def compare_training(runs, device, steps_n, tag, what, symmetric=(),
     worst_grad = max(grad_err, key=grad_err.get)
     worst_max = max(leaf_max, key=leaf_max.get)
     worst_share = max(leaf_share, key=leaf_share.get)
-    log(f"[{tag}] {what}, {steps_n} steps, TF32 off: loss "
-        f"{[round(m['loss'], 5) for m in m_dev]} vs "
-        f"{[round(m['loss'], 5) for m in m_cpu]}; worst metric rel diff "
+    log(f"[{tag}] {what}, {steps_n} steps, TF32 off: {loss_key} "
+        f"{[round(m[loss_key], 5) for m in m_dev]} vs "
+        f"{[round(m[loss_key], 5) for m in m_cpu]}; worst metric rel diff "
         f"{worst:.2e} (tol {TRAIN_METRIC_RTOL:g}); first-step gradient per "
         f"leaf: worst max |diff| {grad_err[worst_grad]:.2e} of the leaf's "
         f"largest ({worst_grad}; tol {TRAIN_GRAD_RTOL:g}; "
@@ -3730,6 +3755,466 @@ def convert_phase(pipes, inputs, card: str, device="cuda"):
                              "converter's trees")
 
 
+# phases 35-38: codec and vocoder GAN training and offline extraction.
+# Phases 35-36 run CLI-default batches at full width: the DAC 64 crops of
+# 0.38 s (9120 samples, 19 latent frames), HiFT 16 of 1.02 s (24480
+# samples, 51 mel frames) with pitch; a warm-up and GAN_ITERS timed
+# iterations (disc step, then gen step). Phase 37 holds one iteration
+# card vs CPU at reduced width (GAN_CROSS_*) on the same weights and draws
+# at phase 9's limits in float64, and its float32 metrics. Its float32
+# gradients are printed, not held: the discriminators' leaky ReLUs make
+# the gradient jump where a pre-activation crosses 0, and a change of
+# the input by GAN_NUDGE relative (float32 rounding's scale after a few
+# layers) moves some float64 leaves by 1e-3 and more of their largest
+# (phase 37 prints it; tests/test_torch_gan.py holds the jump). Then S3
+# V1 over a 70 s mel (3 windows): codes
+# identical, or a differing position's top two distances within
+# V1_TIE_RTOL of each other (a tie that float32 rounding may break
+# either way)
+GAN_ITERS = 3
+DAC_BATCH, DAC_SECONDS = 64, 0.38
+HIFT_BATCH, HIFT_SECONDS = 16, 1.02
+GAN_CROSS_BATCH, GAN_CROSS_SECONDS = 2, 0.3
+GAN_NUDGE = 1e-6
+V1_SECONDS, V1_TIE_RTOL = 70.0, 1e-5
+
+
+def speechlike(rng, n: int, sr: int = 24000) -> np.ndarray:
+    """n samples of a voiced tone (120-260 Hz, three harmonics) under a
+    3-6 Hz syllable envelope, with noise, peak about 0.6."""
+    t = np.arange(n) / sr
+    f0 = rng.uniform(120.0, 260.0)
+    tone = sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6.3)) / k
+               for k in (1, 2, 3))
+    env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(3, 6) * t))
+    return (0.3 * env * tone + 0.02 * rng.standard_normal(n)).astype(
+        np.float32)
+
+
+def gan_batch(kind: str, cfg, batch: int, seconds: float,
+              seed: int = 0) -> dict:
+    """A fixed GAN batch (numpy) from `seed`: DAC {"audio": (B, n)}, n a
+    hop multiple; HiFT {"speech_feat" (B, T, 80) host mel, "audio" (B, T
+    * hop), "pitch" (B, T) YIN f0}, as cli/train_hift.py's folder
+    source builds them."""
+    from minimax_speech_torch.ops import mel as mel_ops
+    from minimax_speech_torch.ops.pitch import yin_f0
+
+    rng = np.random.default_rng(seed)
+    hop = cfg.hop_length if kind == "dac" else cfg.total_upsample
+    n = int(seconds * 24000) // hop * hop
+    audio = np.stack([speechlike(rng, n) for _ in range(batch)])
+    if kind == "dac":
+        return {"audio": audio}
+    t = n // hop
+    mel = mel_ops.hifigan_log_mel_np(audio).transpose(0, 2, 1)[:, :t]
+    pitch = np.stack([yin_f0(a, 24000, hop)[:t] for a in audio])
+    return {"speech_feat": mel.astype(np.float32), "audio": audio,
+            "pitch": np.pad(pitch, ((0, 0), (0, t - pitch.shape[1])))}
+
+
+def gan_draws(kind: str, cfg, batch: dict, device, seed: int = 0):
+    """The iteration's draws for `batch` from a CPU generator seeded with
+    `seed`, moved to `device`, so the card and the CPU share them."""
+    import torch
+
+    from minimax_speech_torch.train import gan_steps
+
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "dac":
+        return gan_steps.dac_eps(cfg, *batch["audio"].shape, gen).to(device)
+    d = gan_steps.make_hift_draws(cfg, *batch["speech_feat"].shape[:2], gen)
+    return gan_steps.HiFTDraws(d.phase.to(device), d.noise.to(device))
+
+
+def gan_models(kind: str, cfg, device, seed: int = 0, disc_kw=None,
+               dtype=None):
+    """(generator, discriminator, (gen_step, disc_step), g_state,
+    d_state): the generator of `cfg` and the kind's discriminator
+    (disc_kw, or the CLI's default), initialised from `seed` (in
+    `dtype`, default float32), with
+    AdamW at TRAIN_LR as the CLIs build it (the DAC's weight decay 1e-3,
+    its discriminator clipped at 10)."""
+    import torch
+
+    from minimax_speech_torch.models import dac_vae, discriminators, hifigan
+    from minimax_speech_torch.train import gan_steps, schedule, steps
+    from minimax_speech_torch.utils import params_io
+
+    init = torch.Generator().manual_seed(seed)
+    if kind == "dac":
+        gen = dac_vae.DACVAE(cfg)
+        disc = discriminators.DACDiscriminator(**(disc_kw or {}))
+        clips, wd = (1e3, 10.0), 1e-3
+    else:
+        gen = hifigan.HiFTGenerator(cfg)
+        disc = discriminators.CosyVoiceDiscriminator(**(disc_kw or {}))
+        clips, wd = (1e3, 1e3), 0.0
+    gen = params_io.init_params(gen, init).to(device, dtype)
+    disc = params_io.init_params(disc, init).to(device, dtype)
+    make = gan_steps.make_dac_steps if kind == "dac" \
+        else gan_steps.make_hift_steps
+    states = [steps.make_train_state(m, schedule.make_optimizer(
+        lr=TRAIN_LR, warmup_steps=0, grad_clip=c, weight_decay=wd))
+        for m, c in ((gen, clips[0]), (disc, clips[1]))]
+    return gen, disc, make(gen, disc, device=device), *states
+
+
+def gan_train_phase(kind: str, cfg, card: str, device="cuda",
+                    iters: int = GAN_ITERS, batch: int | None = None,
+                    seconds: float | None = None) -> dict:
+    """Phases 35 (DAC-VAE) and 36 (HiFT): the CLI's models at the width
+    of `cfg` on a fixed CLI-sized batch with fixed draws: a warm-up and
+    `iters` timed iterations, each half's step_s, audio seconds per
+    second, peak memory, one profiled iteration (busy time; shares of
+    convolutions, GEMMs and FFTs; the host's idle share); every loss
+    finite, K1 and K2 never launched. Returns the record."""
+    import torch
+
+    on_card = device == "cuda"
+    batch = batch or (DAC_BATCH if kind == "dac" else HIFT_BATCH)
+    seconds = seconds or (DAC_SECONDS if kind == "dac" else HIFT_SECONDS)
+    data = gan_batch(kind, cfg, batch, seconds)
+    b = _on(data, device)
+    draws = gan_draws(kind, cfg, data, device)
+    gen, disc, (gen_step, disc_step), g_state, d_state = gan_models(
+        kind, cfg, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    halves, rows = [], []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def one():
+        nonlocal g_state, d_state
+        t0 = time.perf_counter()
+        d_state, dm = disc_step(d_state, b, draws)
+        sync()
+        t1 = time.perf_counter()
+        g_state, gm = gen_step(g_state, b, draws)
+        m = {k: float(v) for k, v in {**dm, **gm}.items()}  # syncs
+        halves.append((t1 - t0, time.perf_counter() - t1))
+        if not np.isfinite(list(m.values())).all():
+            raise AssertionError(f"{kind} GAN iteration {g_state.step}: {m}")
+        rows.append(m)
+
+    reset_counts()
+    one()
+    for _ in range(iters):
+        one()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    prof = profile_step(one, f"one {kind} GAN iteration") if on_card else {}
+    seen = read_counts()
+    if seen != ({"forward": 0, "backward": 0}, 0):
+        raise AssertionError(f"{kind} GAN training launched (K2, K1) {seen}")
+    disc_s = statistics.median(h[0] for h in halves[1: 1 + iters])
+    gen_s = statistics.median(h[1] for h in halves[1: 1 + iters])
+    audio_s = batch * data["audio"].shape[1] / 24000
+    n_g = sum(p.numel() for p in gen.parameters())
+    n_d = sum(p.numel() for p in disc.parameters())
+    log(f"[gan] {card} | {kind} | generator {n_g} parameters, "
+        f"discriminator {n_d} | batch {batch} x {data['audio'].shape[1]} "
+        f"samples | median step_s disc {disc_s:.4f} gen {gen_s:.4f} "
+        f"(iterations {[tuple(round(x, 4) for x in h) for h in halves]}) | "
+        f"audio s/s {audio_s / (disc_s + gen_s):.1f} | peak memory "
+        f"{peak / 2**30:.2f} GiB | K1, K2 launches 0 | first iteration "
+        f"{ {k: round(v, 4) for k, v in rows[0].items()} }")
+    return {"disc_step_s": disc_s, "gen_step_s": gen_s,
+            "audio_s_per_s": audio_s / (disc_s + gen_s),
+            "peak_gib": peak / 2**30, "profile": prof}
+
+
+def reduced_gan(kind: str, cfg):
+    """Phase 37's widths: the DAC at encoder 8, decoder 96, latent 16 (its
+    rates kept) against 2 periods and one FFT; HiFT at 64 base channels
+    and 32 f0 channels against 2 periods and 2 spectral discriminators."""
+    if kind == "dac":
+        return (dataclasses.replace(cfg, encoder_dim=8, decoder_dim=96,
+                                    latent_dim=16),
+                {"periods": (2, 3), "fft_sizes": (512,)})
+    return (dataclasses.replace(cfg, base_channels=64, f0_cond_channels=32),
+            {"periods": (2, 3), "fft_sizes": (512, 256),
+             "hop_sizes": (120, 50), "win_lengths": (480, 240)})
+
+
+@contextlib.contextmanager
+def recorded_grads():
+    """Every gradient list that train.steps.backward_and_update computes
+    inside the block, on the CPU, in order."""
+    from minimax_speech_torch.train import steps
+
+    seen, orig = [], steps.backward_and_update
+
+    def record(state, loss):
+        grads = orig(state, loss)
+        seen.append([g.detach().cpu() for g in grads])
+        return grads
+
+    steps.backward_and_update = record
+    try:
+        yield seen
+    finally:
+        steps.backward_and_update = orig
+
+
+def gan_iteration(kind: str, cfg, disc_kw, data: dict, device, dtype):
+    """One iteration (disc step, then gen step) of phase 37's models
+    (seed 5) on `data` with the draws of seed 4, in `dtype` on `device`:
+    (metrics, every leaf's gradient, the parameters after the step),
+    keyed by "disc." / "gen." and the parameter's name, on the CPU."""
+    import torch
+
+    gen, disc, (gen_step, disc_step), g_state, d_state = gan_models(
+        kind, cfg, device, seed=5, disc_kw=disc_kw, dtype=dtype)
+    b = {k: v.to(dtype) for k, v in _on(data, device).items()}
+    draws = gan_draws(kind, cfg, data, device, seed=4)
+    draws = draws.to(dtype) if torch.is_tensor(draws) else type(draws)(
+        draws.phase.to(dtype), draws.noise.to(dtype))
+    with recorded_grads() as seen:
+        d_state, dm = disc_step(d_state, b, draws)
+        g_state, gm = gen_step(g_state, b, draws)
+    names = [f"disc.{n}" for n, _ in disc.named_parameters()] + [
+        f"gen.{n}" for n, _ in gen.named_parameters()]
+    return ([{k: float(v) for k, v in {**dm, **gm}.items()}],
+            dict(zip(names, seen[0] + seen[1])),
+            {f"{tag}.{n}": p.detach().cpu() for tag, m in
+             (("disc", disc), ("gen", gen)) for n, p in m.named_parameters()})
+
+
+def gan_cross_check(kind: str, full_cfg, device="cuda"):
+    """Phase 37's GAN half: one iteration at reduced width on `device`
+    and on the CPU, the same weights, batch and draws. In float64, phase
+    9's checks (compare_training) on the metrics, every leaf's gradient
+    and the parameters after the step. In float32 (TF32 off), the
+    metrics within TRAIN_METRIC_RTOL, and each leaf's gradient distance
+    printed beside the CPU float32's own distance to float64 and beside
+    the float64 gradient's move when the batch moves by GAN_NUDGE
+    relative (see the comment above GAN_ITERS)."""
+    import torch
+
+    cfg, disc_kw = reduced_gan(kind, full_cfg)
+    data = gan_batch(kind, cfg, GAN_CROSS_BATCH, GAN_CROSS_SECONDS, seed=3)
+    runs = {dt: {dev: gan_iteration(kind, cfg, disc_kw, data, dev, dt)
+                 for dev in ("cpu", device)}
+            for dt in (torch.float64, torch.float32)}
+    compare_training(runs[torch.float64], device, 1, f"cross-{kind}",
+                     f"{kind} GAN iteration, reduced width, float64",
+                     loss_key="gen/loss")
+    (m_dev, g_dev, _), (m_cpu, g_cpu, _) = (runs[torch.float32][d]
+                                            for d in (device, "cpu"))
+    worst = max(abs(m_dev[0][k] - v) / max(abs(v), 1e-12)
+                for k, v in m_cpu[0].items())
+    truth = runs[torch.float64]["cpu"][1]
+    rng = np.random.default_rng(37)
+    nudged = {k: (v * (1 + GAN_NUDGE * rng.standard_normal(v.shape))).astype(
+        v.dtype) if v.dtype == np.float32 and k != "pitch" else v
+        for k, v in data.items()}
+    moved = grad_errors(gan_iteration(kind, cfg, disc_kw, nudged, "cpu",
+                                      torch.float64)[1], truth)
+    card, cpu = (grad_errors(g, truth) for g in (g_dev, g_cpu))
+    err = grad_errors(g_dev, g_cpu)
+    w = sorted(err, key=lambda n: -err[n])[:3]
+    log(f"[cross-{kind}] float32, TF32 off: worst metric rel diff "
+        f"{worst:.2e} (tol {TRAIN_METRIC_RTOL:g}); "
+        f"{sum(e > TRAIN_GRAD_RTOL for e in err.values())} of {len(err)} "
+        f"leaves' gradients beyond {TRAIN_GRAD_RTOL:g} of their largest "
+        f"card vs CPU, worst " + ", ".join(
+            f"{n} {err[n]:.2e} (card / CPU to float64 {card[n]:.2e} / "
+            f"{cpu[n]:.2e}; float64 moved {moved[n]:.2e} by the nudge)"
+            for n in w) + f"; the nudge's largest move "
+        f"{max(moved.values()):.2e} ({max(moved, key=moved.get)})")
+    if worst > TRAIN_METRIC_RTOL:
+        raise AssertionError(f"{kind} GAN iteration: float32 metrics differ "
+                             f"card vs CPU by {worst:.2e}")
+
+
+def v1_cross_check(device="cuda"):
+    """Phase 37's S3 half: S3TokenizerV1 (25 Hz, default width, seed 0)
+    over the whisper mel of V1_SECONDS of speech-like audio, its windows
+    in one batch on `device` and on the CPU: codes identical, or each
+    differing position a tie (top two distances on the CPU within
+    V1_TIE_RTOL); quantize_long's merged tokens the same way."""
+    import torch
+
+    from minimax_speech_torch.models import s3tokenizer as s3
+    from minimax_speech_torch.ops import mel as mel_ops
+    from minimax_speech_torch.utils import params_io
+
+    rng = np.random.default_rng(37)
+    audio = speechlike(rng, int(V1_SECONDS * 16000), 16000)
+    mel = mel_ops.whisper_log_mel(torch.as_tensor(audio)).T.numpy()
+    wins = s3.split_windows(mel, mel.shape[0])
+    batch = np.zeros((len(wins), s3.WINDOW_FRAMES, mel.shape[1]), np.float32)
+    for i, w in enumerate(wins):
+        batch[i, : len(w)] = w
+    lens = torch.tensor([len(w) for w in wins])
+    out = {}
+    for dev in ("cpu", device):
+        model = params_io.init_params(s3.S3TokenizerV1(),
+                                      torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            hidden, code_len = model.encode(torch.as_tensor(batch).to(dev),
+                                            lens.to(dev))
+            codes = s3.nearest_code(hidden, model.codebook)
+        out[dev] = (codes.cpu(), hidden.cpu(), code_len.cpu(),
+                    time.perf_counter() - t0)
+        book = model.codebook.detach().cpu()
+    # quantize_long on the card; the CPU's codes merged as it merges them
+    tokens = s3.quantize_long(model, mel, mel.shape[0])
+    codes, hidden, code_len, secs = out[device]
+    c_cpu, h_cpu, len_cpu, secs_cpu = out["cpu"]
+    tok_cpu = s3.merge_window_tokens([c_cpu[i, :n].tolist() for i, n in
+                                      enumerate(len_cpu.tolist())])
+    valid = torch.arange(codes.shape[1])[None] < code_len[:, None]
+    diff = (codes != c_cpu) & valid
+    ties = 0
+    for w, t in diff.nonzero().tolist():
+        x = h_cpu[w, t].double()
+        dist = (2 * book.double() @ x - book.double().square().sum(-1)
+                - x.square().sum())
+        top = torch.topk(dist, 2).values
+        if abs(float(top[0] - top[1])) > V1_TIE_RTOL * abs(float(top[0])):
+            raise AssertionError(f"S3 V1 window {w} frame {t}: code "
+                                 f"{int(codes[w, t])} on the card, "
+                                 f"{int(c_cpu[w, t])} on the CPU, top two "
+                                 f"distances {top.tolist()}")
+        ties += 1
+    n_tok = sum(a != b for a, b in zip(tokens, tok_cpu))
+    if not torch.equal(code_len, len_cpu) or len(tokens) != len(tok_cpu) \
+            or n_tok > ties:
+        raise AssertionError(f"S3 V1 quantize_long: {len(tokens)} vs "
+                             f"{len(tok_cpu)} tokens, {n_tok} differ, "
+                             f"{ties} ties")
+    h_err = float((hidden - h_cpu).abs().max() / h_cpu.abs().max())
+    log(f"[cross-s3v1] {V1_SECONDS:.0f} s, {len(wins)} windows, "
+        f"{int(valid.sum())} codes: {int(diff.sum())} differ card vs CPU, "
+        f"each a tie within {V1_TIE_RTOL:g} ({ties}); quantize_long "
+        f"{len(tokens)} tokens, {n_tok} differ; encoder output max |diff| "
+        f"{h_err:.2e} of its largest; the batched call card {secs:.2f} s, CPU "
+        f"{secs_cpu:.2f} s")
+
+
+def gan_cli_phase(card: str, device="cuda", config="configs/default.yaml",
+                  dac_batch: int | None = None, hift_batch: int | None = None):
+    """Phase 38: the CLIs on a written corpus (write_corpus, 16 wavs of
+    8-16 s, plus one of 35 s): train_dac for 2 iterations at the CLI's
+    batch (dac_batch), then a second call that resumes at step 2 for a
+    third and writes --export_npz, which the port loads; train_hift
+    --train_data --with_pitch the same way (hift_batch); extract_fsq v2
+    (the 35 s file spans two windows) and v1_25hz at random weights;
+    extract_dac_latents with the export (latent_stats.json beside it),
+    extract_embedding, and eval_dac on the export, whose JSON is
+    printed. K1 and K2 are never launched."""
+    import shutil
+    import tempfile
+    import torch
+
+    from minimax_speech_torch import config as cfg_lib
+    from minimax_speech_torch.cli import (eval_dac, extract_dac_latents,
+                                          extract_embedding, extract_fsq,
+                                          train_dac, train_hift)
+    from minimax_speech_torch.models import dac_vae
+    from minimax_speech_torch.utils import params_io
+
+    repo = Path(__file__).resolve().parent
+    scratch = repo / "build"
+    scratch.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="gan_cli_", dir=scratch))
+    cfg = str(repo / config)
+    dev = ["--device", device, "--config", cfg]
+    times = {}
+    try:
+        (root / "corpus").mkdir()
+        lst = write_corpus(root / "corpus")
+        rng = np.random.default_rng(38)
+        import wave
+        with wave.open(str(root / "corpus" / "long.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(24000)
+            w.writeframes((speechlike(rng, 35 * 24000) * 32767).astype(
+                np.int16).tobytes())
+        reset_counts()
+
+        def timed(name, fn, argv):
+            t0 = time.perf_counter()
+            fn(argv)
+            times[name] = time.perf_counter() - t0
+
+        dac_dir, npz = root / "dac", root / "dac" / "codec.npz"
+        dac_args = ["--train_folders", str(root / "corpus"), "--model_dir",
+                    str(dac_dir), "--log_interval", "1", "--warmup_steps",
+                    "0"] + dev + (["--batch_size", str(dac_batch)]
+                                  if dac_batch else [])
+        timed("train_dac", train_dac.main, dac_args + ["--num_iters", "2"])
+        timed("train_dac_resume", train_dac.main,
+              dac_args + ["--num_iters", "3", "--export_npz", str(npz)])
+        hift_dir = root / "hift"
+        hift_args = ["--train_data", str(lst), "--with_pitch", "--model_dir",
+                     str(hift_dir), "--log_interval", "1", "--warmup_steps",
+                     "0"] + dev + (["--batch_size", str(hift_batch)]
+                                   if hift_batch else [])
+        timed("train_hift", train_hift.main, hift_args + ["--num_iters", "2"])
+        timed("train_hift_resume", train_hift.main,
+              hift_args + ["--num_iters", "3"])
+        for d, name in ((dac_dir, "dac"), (hift_dir, "hift")):
+            rows = [json.loads(x) for x in (d / f"{name}_metrics.jsonl")
+                    .read_text().splitlines()]
+            ckpts = sorted(p.name for p in (d / "ckpt_g").iterdir())
+            if [r["step"] for r in rows] != [0, 1, 2] or ckpts != ["2", "3"] \
+                    or not all(np.isfinite(v) for r in rows
+                               for v in r.values()):
+                raise AssertionError(f"{name} CLI: steps "
+                                     f"{[r['step'] for r in rows]}, "
+                                     f"checkpoints {ckpts}")
+        codec = params_io.load_flax_params(
+            dac_vae.DACVAE(cfg_lib.load_tts_config(cfg).dac),
+            params_io.load_params(str(npz)))
+        corpus = ["--dir", str(root / "corpus"), "--device", device]
+        timed("extract_fsq_v2", extract_fsq.main,
+              corpus + ["--random_init", "--config", cfg])
+        toks = {p.stem: len(np.load(p)) for p in
+                (root / "corpus").glob("*_fsq.npy")}
+        if toks.get("long_fsq") != 875:
+            raise AssertionError(f"extract_fsq v2: the 35 s file gave "
+                                 f"{toks.get('long_fsq')} tokens, not 875")
+        timed("extract_fsq_v1_25hz", extract_fsq.main,
+              corpus + ["--random_init", "--model_version", "v1_25hz",
+                        "--output_suffix", "_v1.npy"])
+        timed("extract_dac_latents", extract_dac_latents.main,
+              corpus + ["--ckpt", str(npz), "--config", cfg,
+                        "--verify_fraction", "0.1"])
+        stats = json.loads((dac_dir / "latent_stats.json").read_text())
+        timed("extract_embedding", extract_embedding.main,
+              corpus + ["--random_init"])
+        n_spk = len(list((root / "corpus").glob("*_spk.npy")))
+        t0 = time.perf_counter()
+        metrics = eval_dac.main(["--ckpt", str(npz), "--wav_dir",
+                                 str(root / "corpus"), "--max_files", "3",
+                                 "--device", device, "--config", cfg])
+        times["eval_dac"] = time.perf_counter() - t0
+        seen = read_counts()
+        if seen != ({"forward": 0, "backward": 0}, 0) or n_spk != 17 \
+                or stats["frames"] == 0 or len(stats["mean"]) != 80:
+            raise AssertionError(f"GAN/extraction CLIs: (K2, K1) {seen}, "
+                                 f"{n_spk} embeddings, stats frames "
+                                 f"{stats['frames']}")
+        secs = json.dumps({k: round(v, 1) for k, v in times.items()})
+        log(f"[cli-gan] {card} | seconds {secs} "
+            f"| export {sum(p.numel() for p in codec.parameters())} "
+            f"parameters loaded | v2 tokens of the 35 s file 875 (two "
+            f"windows) | latent stats over {stats['frames']} frames | "
+            f"{n_spk} embeddings | K1, K2 launches 0")
+        log(f"[cli-gan] eval_dac {json.dumps(metrics)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return times
+
+
 def tf32_off():
     """fp32 matmuls and convolutions without TF32, in this process (the
     main one, or a rank of phases 32-33's gang)."""
@@ -3954,7 +4439,24 @@ def main() -> int:
         gang.close()
         initial.unlink(missing_ok=True)
     launch_rec = launch_phase(card, backend)
-    phase_time(34, t0)
+    t0 = phase_time(34, t0)
+
+    # codec and vocoder GAN training, extraction: phases 35-38
+    gan_train_phase("dac", TTSConfig().dac, card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(35, t0)
+    gan_train_phase("hift", TTSConfig().hift, card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(36, t0)
+    gan_cross_check("dac", TTSConfig().dac)
+    gan_cross_check("hift", TTSConfig().hift)
+    v1_cross_check()
+    t0 = phase_time(37, t0)
+    gan_cli_phase(card)
+    phase_time(38, t0)
+    for rec in (record, k2):  # asserted 0 in each phase
+        rec["launches_by_path"].update(dac_gan_train=0, hift_gan_train=0,
+                                       gan_and_extract_cli=0)
     # totals over the timed steps, as lm_train's; per step beside them
     paths = {f"lm_train_remat_{m}": r for m, r in remat_rec.items()}
     paths.update({f"dpo_train_remat_{m}": r for m, r in dpo_rec.items()})

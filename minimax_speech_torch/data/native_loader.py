@@ -77,16 +77,13 @@ def batch_load(paths: list[str], target_sr: int = 0,
     to skip)."""
     mod = _native()
     if mod is None:
-        from minimax_speech_torch.data.pipeline import _load_audio
+        from minimax_speech_torch.data.pipeline import (_load_audio,
+                                                        linear_resample)
         out = []
         for p in paths:
             audio, sr = _load_audio(p)
             if target_sr and sr != target_sr:
-                n = int(round(len(audio) * target_sr / sr))
-                audio = np.interp(
-                    np.linspace(0, 1, n, endpoint=False),
-                    np.linspace(0, 1, len(audio), endpoint=False),
-                    audio).astype(np.float32)
+                audio = linear_resample(audio, sr, target_sr)
                 sr = target_sr
             out.append((audio, sr))
         return out

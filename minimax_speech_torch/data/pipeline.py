@@ -1,8 +1,8 @@
-"""Host-side data pipeline for LM and flow training: chained generator
-stages.
+"""Host-side data pipeline for LM, flow and vocoder training: chained
+generator stages.
 
-Port of the stages of minimax_speech_tpu/data/pipeline.py that the
-chains of cli/train.py run:
+Port of minimax_speech_tpu/data/pipeline.py. The chains of cli/train.py
+run:
 
   DataList -> individual_file_opener (wav or mp3 + sidecars) ->
   tokenize -> filter_lengths -> resample -> extract_reference_mel ->
@@ -15,6 +15,12 @@ shapes each step), filter_static_shapes -> static_batch(drop_last) in
 place of dynamic_batch, and padding_llm(pad_to, pad_ref) or
 padding_flow(pad_tokens, pad_ref) at fixed pads; DataList partitions the
 items by data-parallel rank (`process_index` / `process_count`).
+
+cli/train_hift.py --train_data runs the GAN chain:
+
+  individual_file_opener(require_latent=False) -> filter_lengths ->
+  resample -> truncate -> compute_fbank -> [extract_pitch] -> shuffle ->
+  static_batch(drop_last) -> padding_gan
 
 and the other openers: parquet_opener (parquet shards of
 cli/data_tools.py make_parquet) and data/native_loader.py's
@@ -39,6 +45,7 @@ import numpy as np
 from minimax_speech_torch.data import mp3 as mp3_mod
 from minimax_speech_torch.models import llm as llm_mod
 from minimax_speech_torch.ops import mel as mel_ops
+from minimax_speech_torch.ops.pitch import yin_f0
 
 TOKEN_LATENT_RATIO = 2  # 50 Hz latents per 25 Hz token
 
@@ -97,18 +104,22 @@ def _load_pt(path: str) -> np.ndarray:
     return t.numpy() if hasattr(t, "numpy") else np.asarray(t)
 
 
-_SIDECAR_ERRORS = (OSError, ValueError, KeyError, IndexError)
-
-
-def attach_sidecars(sample: dict) -> Iterator[dict]:
+def attach_sidecars(sample: dict, require_latent: bool = True
+                    ) -> Iterator[dict]:
     """Attach <stem>.txt, <stem>_fsq.* and <stem>_latent2x.* to a sample
     that already carries decoded audio, tokens and latents cut to a
     common length, and an optional <stem>_fsq_reject.* (DPO's rejected
-    tokens) as reject_speech_token; skip-and-log on error."""
+    tokens) as reject_speech_token; skip-and-log on any error.
+    require_latent=False (the vocoder's chain): text and tokens only,
+    the tokens whole."""
     try:
         stem = Path(sample["src"]).with_suffix("")
         sample["text"] = Path(str(stem) + ".txt").read_text().strip()
         tok = _load_array(str(stem) + "_fsq")
+        if not require_latent:
+            sample["speech_token"] = np.asarray(tok, np.int32)
+            yield sample
+            return
         lat = _load_array(str(stem) + "_latent2x")
         if lat.ndim == 3:
             lat = lat[0]
@@ -121,10 +132,10 @@ def attach_sidecars(sample: dict) -> Iterator[dict]:
         try:
             sample["reject_speech_token"] = np.asarray(
                 _load_array(str(stem) + "_fsq_reject"), np.int32)
-        except _SIDECAR_ERRORS:
-            pass  # no reject: padding_llm(dpo=True) drops the sample
+        except Exception:  # noqa: BLE001 - absent or unreadable: no reject
+            pass  # padding_llm(dpo=True) drops the sample
         yield sample
-    except _SIDECAR_ERRORS as e:
+    except Exception as e:  # noqa: BLE001 - one sample's fault skips it
         print(f"opener skip {sample.get('src')}: {e}")
 
 
@@ -162,20 +173,22 @@ def _wav_audio(w: wave.Wave_read):
     return audio, sr
 
 
-def individual_file_opener(data: Iterable[dict]) -> Iterator[dict]:
-    """Read wav + sidecars per item; unreadable items are skipped and
-    logged."""
+def individual_file_opener(data: Iterable[dict],
+                           require_latent: bool = True) -> Iterator[dict]:
+    """Read wav + sidecars per item (attach_sidecars, require_latent as
+    it takes it); a file that fails to decode, for any reason, is skipped
+    and logged."""
     for sample in data:
         for wav_path in _expand_src(str(sample["src"])):
             item = {**sample, "src": wav_path}
             try:
                 audio, sr = _load_audio(wav_path)
-            except (OSError, EOFError, wave.Error) as e:
+            except Exception as e:  # noqa: BLE001 - one file's fault skips it
                 print(f"opener skip {wav_path}: {e}")
                 continue
             item["audio"] = audio
             item["sample_rate"] = sr
-            yield from attach_sidecars(item)
+            yield from attach_sidecars(item, require_latent)
 
 
 def parquet_opener(data: Iterable[dict]) -> Iterator[dict]:
@@ -225,19 +238,60 @@ def filter_lengths(data, max_length: int = 40960, min_length: int = 100,
         yield s
 
 
+def linear_resample(audio: np.ndarray, sr: int, target_sr: int
+                    ) -> np.ndarray:
+    """(T,) audio at sr -> round(T * target_sr / sr) samples at target_sr,
+    linearly interpolated (np.interp), float32."""
+    if sr == target_sr:
+        return audio.astype(np.float32)
+    n = int(round(len(audio) * target_sr / sr))
+    return np.interp(np.linspace(0.0, 1.0, n, endpoint=False),
+                     np.linspace(0.0, 1.0, len(audio), endpoint=False),
+                     audio).astype(np.float32)
+
+
 def resample(data, target_sr: int = 24000) -> Iterator[dict]:
     """Linear resample, and peak normalization above 1."""
     for s in data:
-        sr = s["sample_rate"]
-        if sr != target_sr:
-            n_out = int(round(len(s["audio"]) * target_sr / sr))
-            x_old = np.linspace(0.0, 1.0, len(s["audio"]), endpoint=False)
-            x_new = np.linspace(0.0, 1.0, n_out, endpoint=False)
-            s["audio"] = np.interp(x_new, x_old, s["audio"]).astype(np.float32)
+        if s["sample_rate"] != target_sr:
+            s["audio"] = linear_resample(s["audio"], s["sample_rate"],
+                                         target_sr)
             s["sample_rate"] = target_sr
         peak = np.abs(s["audio"]).max() if len(s["audio"]) else 0.0
         if peak > 1.0:
             s["audio"] = s["audio"] / peak * 0.9
+        yield s
+
+
+def truncate(data, truncate_length: int = 24480) -> Iterator[dict]:
+    """A random crop of truncate_length samples (from `random`), or the
+    audio zero-padded to it."""
+    for s in data:
+        a = s["audio"]
+        if len(a) > truncate_length:
+            start = random.randint(0, len(a) - truncate_length)
+            s["audio"] = a[start: start + truncate_length]
+        else:
+            s["audio"] = np.pad(a, (0, truncate_length - len(a)))
+        yield s
+
+
+def compute_fbank(data, token_mel_ratio: int = 2) -> Iterator[dict]:
+    """speech_feat: the 24 kHz (T, 80) log-mel, cut with the tokens to a
+    common length (token_mel_ratio frames per token)."""
+    for s in data:
+        m = mel_ops.hifigan_log_mel_np(s["audio"]).T
+        n = min(m.shape[0] // token_mel_ratio, len(s["speech_token"]))
+        s["speech_token"] = s["speech_token"][:n]
+        s["speech_feat"] = m[: n * token_mel_ratio].astype(np.float32)
+        yield s
+
+
+def extract_pitch(data, sample_rate: int = 24000, hop: int = 480
+                  ) -> Iterator[dict]:
+    """pitch_feat: YIN f0 (ops/pitch.py) every `hop` samples."""
+    for s in data:
+        s["pitch_feat"] = yin_f0(s["audio"], sample_rate, hop)
         yield s
 
 
@@ -454,6 +508,25 @@ def padding_llm(batches, mix_ratio=(5, 15), use_spk: bool = True,
                         plan_for("reject_speech_token", pad).items()})
         if "reference_mels" in batch[0]:
             out.update(_pad_reference_mels(batch, 32, pad_ref))
+        yield out
+
+
+def padding_gan(batches, hop: int = 480) -> Iterator[dict]:
+    """The vocoder's batch: speech_feat (B, T, 80) cut to the shortest
+    sample's T, audio (B, T * hop) aligned to it, and pitch (B, T) (the
+    YIN frames past a sample's last zero: unvoiced) when the samples
+    carry pitch_feat."""
+    for batch in batches:
+        feats = [s["speech_feat"] for s in batch]
+        t_mel = min(f.shape[0] for f in feats)
+        out = {"speech_feat": np.stack([f[:t_mel] for f in feats]
+                                       ).astype(np.float32),
+               "audio": np.stack([s["audio"][: t_mel * hop] for s in batch]
+                                 ).astype(np.float32)}
+        if "pitch_feat" in batch[0]:
+            pitch = [s["pitch_feat"][:t_mel] for s in batch]
+            out["pitch"] = np.stack([np.pad(p, (0, t_mel - len(p)))
+                                     for p in pitch]).astype(np.float32)
         yield out
 
 

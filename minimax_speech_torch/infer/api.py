@@ -24,20 +24,12 @@ import numpy as np
 import torch
 
 from minimax_speech_torch import config as cfg_lib
+from minimax_speech_torch.data.pipeline import linear_resample
 from minimax_speech_torch.infer.frontend import Frontend
 from minimax_speech_torch.infer.pipeline import TTSPipeline, next_bucket
 from minimax_speech_torch.infer.session import StreamingSession
 from minimax_speech_torch.models.flow import flow_inference
 from minimax_speech_torch.utils.params_io import load_params
-
-
-def _resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
-    if sr_in == sr_out:
-        return audio.astype(np.float32)
-    n = int(round(len(audio) * sr_out / sr_in))
-    return np.interp(np.linspace(0, 1, n, endpoint=False),
-                     np.linspace(0, 1, len(audio), endpoint=False),
-                     audio).astype(np.float32)
 
 
 def _no_campplus(path) -> NotImplementedError:
@@ -108,7 +100,7 @@ class TTS:
         (latents, or the mel in mel mode), the LM's (1, C) and the flow's
         (1, 192) speaker conditioning, prompt text tokens."""
         p = self.pipeline
-        audio24 = _resample(prompt_speech_16k, 16000, 24000)
+        audio24 = linear_resample(prompt_speech_16k, 16000, 24000)
         lm_spk, flow_emb = p.speaker_embedding(p.extract_prompt_mel(audio24))
         return {"prompt_tokens": p.extract_prompt_tokens(
                     prompt_speech_16k.astype(np.float32)),

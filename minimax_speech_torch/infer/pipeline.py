@@ -174,7 +174,7 @@ class TTSPipeline:
         a = dac_vae.pad_to_hop(np.asarray(audio_24k, np.float32)[None, :],
                                self.cfg.dac.hop_length)
         a = torch.as_tensor(a[..., None], device=self.device)
-        return self.dac.encode(a)[0].cpu().numpy()
+        return self.dac.encode(a)[1][0].cpu().numpy()
 
     @torch.no_grad()
     def speaker_embedding(self, prompt_mel: np.ndarray):

@@ -1,6 +1,7 @@
-"""DAC-VAE continuous audio codec: encoder (mu) and decoder.
+"""DAC-VAE continuous audio codec: encoder (z, mu, logs) and decoder.
 
-Port of minimax_speech_tpu/models/dac_vae.py, inference and the
+Port of minimax_speech_tpu/models/dac_vae.py: inference, the training
+forward (the reparameterized latent z = mu + eps exp(logs)) and the
 converter of an upstream state dict. Snake
 activations and weight-normalized convs, with the weight norm kept as
 explicit (g, v) parameters in the JAX layout: the kernel is
@@ -75,10 +76,11 @@ class _WN(nn.Module):
     """Shared (g, v, bias) storage and init of the weight-normed convs."""
 
     def __init__(self, v_shape, g_dim: int, out: int, fan_in: int,
-                 init_var: float):
+                 init_var: float, bias_init=None):
         super().__init__()
         self.fan_in = fan_in
         self.init_var = init_var
+        self.bias_init = bias_init  # the bias at init (default 0)
         self.v = nn.Parameter(torch.zeros(v_shape))
         self.g = nn.Parameter(torch.ones(g_dim))
         self.bias = nn.Parameter(torch.zeros(out))
@@ -89,6 +91,8 @@ class _WN(nn.Module):
         self.g.data.copy_(torch.sqrt(self.v.data.square().sum(dim=(0, 1))
                                      + 1e-12))
         self.bias.data.zero_()
+        if self.bias_init is not None:
+            self.bias.data.copy_(torch.as_tensor(self.bias_init))
 
 
 class WNConv(_WN):
@@ -96,9 +100,10 @@ class WNConv(_WN):
     channel."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, dilation: int = 1):
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 bias_init=None):
         super().__init__((kernel_size, in_ch, features), features, features,
-                         kernel_size * in_ch, INIT_VAR)
+                         kernel_size * in_ch, INIT_VAR, bias_init)
         self.stride, self.padding, self.dilation = stride, padding, dilation
 
     def forward(self, x):  # (B, C, T)
@@ -222,20 +227,42 @@ class DACVAE(nn.Module):
         self.cfg = cfg
         self.encoder = DACEncoder(cfg)
         self.decoder = DACDecoder(cfg)
-        self.en_conv_post = WNConv(cfg.latent_dim, 2 * cfg.latent_dim, 1)
-        self.de_conv_pre = WNConv(cfg.latent_dim, cfg.latent_dim, 1)
+        # at init mu's bias is 0 and logs' is -4 (sigma ~ 0.018), so that
+        # the reparameterization noise cannot swamp the encoder's signal
+        # (the posterior collapse of a from-scratch run at sigma 1); the
+        # annealed KL raises sigma as training goes on
+        lat = cfg.latent_dim
+        self.en_conv_post = WNConv(lat, 2 * lat, 1,
+                                   bias_init=[0.0] * lat + [-4.0] * lat)
+        self.de_conv_pre = WNConv(lat, lat, 1)
 
-    def encode(self, audio):
-        """audio: (B, T, d_in), T a multiple of hop_length -> mu
-        (B, T / hop, latent) (the deterministic latent)."""
+    def encode(self, audio, generator: torch.Generator | None = None,
+               eps: torch.Tensor | None = None):
+        """audio: (B, T, d_in), T a multiple of hop_length -> (z, mu, logs),
+        each (B, T / hop, latent), logs clipped to +-14 and z = mu + eps
+        exp(logs): eps as given, else drawn from `generator` (standard
+        normal), else z is mu."""
         x = self.encoder(audio.transpose(1, 2))
         x = self.en_conv_post(F.leaky_relu(x, negative_slope=0.01))
-        return x[:, : self.cfg.latent_dim].transpose(1, 2)
+        mu, logs = x.transpose(1, 2).chunk(2, dim=-1)
+        logs = torch.clamp(logs, -14.0, 14.0)
+        if eps is None and generator is not None:
+            eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                              device=mu.device)
+        z = mu if eps is None else mu + eps * torch.exp(logs)
+        return z, mu, logs
 
     def decode(self, z):
         """z: (B, T, latent) -> audio (B, T * hop, d_out)."""
         return self.decoder(self.de_conv_pre(z.transpose(1, 2))).transpose(
             1, 2)
+
+    def forward(self, audio, generator: torch.Generator | None = None,
+                eps: torch.Tensor | None = None) -> dict:
+        """The training forward: {"audio": decode(z), "z", "mu", "logs"},
+        the draws as encode takes them."""
+        z, mu, logs = self.encode(audio, generator, eps)
+        return {"audio": self.decode(z), "z": z, "mu": mu, "logs": logs}
 
 
 def pad_to_hop(audio: np.ndarray, hop: int) -> np.ndarray:

@@ -203,14 +203,9 @@ class HiFTGenerator(nn.Module):
         return torch.tanh(self.source_linear(sines))
 
     def _stft(self, x):
-        """(B, T) -> real, imag (B, frames, n_fft//2 + 1): reflect-padded
-        by n_fft//2, a periodic Hann window every hop."""
-        c = self.cfg
-        p = c.istft_n_fft // 2
-        xp = F.pad(x[:, None], (p, p), mode="reflect")[:, 0]
-        frames = mel_ops.frame_signal(xp, c.istft_n_fft, c.istft_hop)
-        spec = torch.fft.rfft(frames * mel_ops.hann_window(
-            c.istft_n_fft, x.dtype, x.device), dim=-1)
+        """(B, T) -> real, imag (B, frames, n_fft//2 + 1): centered, a
+        periodic Hann window every hop."""
+        spec = mel_ops.stft(x, self.cfg.istft_n_fft, self.cfg.istft_hop)
         return spec.real, spec.imag
 
     def decode(self, mel, source):

@@ -1,12 +1,20 @@
-"""S3 FSQ speech tokenizer V2: Whisper-style encoder + finite scalar
-quantizer, one window of up to 30 s.
+"""S3 speech tokenizers: V2 (Whisper-style encoder + finite scalar
+quantizer) and V1 (Whisper encoder + Euclidean codebook), and the
+windowing of audio longer than 30 s.
 
-Port of S3TokenizerV2 of minimax_speech_tpu/models/s3tokenizer.py:
-log-mel (B, T, 128) at 100 Hz -> two stride-2 convs (-> 25 Hz) ->
-residual attention blocks with RoPE and an FSMN memory conv on the
-value path -> Dense to 8 -> FSQ codes in [0, 6561); and the converter of
-an upstream state dict. Long-audio windowing (quantize_long) and V1 are
-not ported yet.
+Port of minimax_speech_tpu/models/s3tokenizer.py:
+  * S3TokenizerV2: log-mel (B, T, 128) at 100 Hz -> two convs (stride
+    2 each -> 25 Hz) -> residual attention blocks with RoPE and an FSMN
+    memory conv on the value path -> Dense to 8 -> FSQ codes in
+    [0, 6561);
+  * S3TokenizerV1: two convs (the first of stride 2 for 25 Hz, 1 for
+    50 Hz) -> sinusoidal positions -> plain Whisper attention blocks ->
+    the nearest of 4096 codebook vectors;
+  * quantize_long: a mel of any length cut into windows of 3000 frames
+    with 4 s overlap, every window padded to 3000 and encoded in one
+    batched call, the tokens merged with half the overlap dropped on
+    each side of a junction;
+and the converter of an upstream V2 state dict.
 """
 from __future__ import annotations
 
@@ -135,6 +143,160 @@ class S3TokenizerV2(nn.Module):
         int32, code lengths (B,))."""
         hidden, code_len = self.encoder(mel, mel_len)
         return fsq_ops.fsq_encode(self.project_down(hidden)), code_len
+
+
+def sinusoid_table(length: int, channels: int) -> np.ndarray:
+    """Whisper's (length, channels) sinusoids, float32."""
+    log_inc = np.log(10000) / (channels // 2 - 1)
+    inv = np.exp(-log_inc * np.arange(channels // 2))
+    ang = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(ang), np.cos(ang)], 1).astype(np.float32)
+
+
+class PlainAttention(nn.Module):
+    """Whisper attention: no RoPE, no FSMN, no key bias; q and k each
+    scaled by d^-1/4, softmax in float32."""
+
+    def __init__(self, n_state: int, n_head: int):
+        super().__init__()
+        self.n_head = n_head
+        self.query = nn.Linear(n_state, n_state)
+        self.key = nn.Linear(n_state, n_state, bias=False)
+        self.value = nn.Linear(n_state, n_state)
+        self.out = nn.Linear(n_state, n_state)
+
+    def forward(self, x, attn_bias):
+        b, t, c = x.shape
+        d = c // self.n_head
+        q, k, v = (f(x).view(b, t, self.n_head, d)
+                   for f in (self.query, self.key, self.value))
+        scale = d ** -0.25
+        scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k * scale)
+        w = torch.softmax((scores + attn_bias).float(), dim=-1).to(x.dtype)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, t,
+                                                                      c))
+
+
+class V1Block(nn.Module):
+    def __init__(self, n_state: int, n_head: int):
+        super().__init__()
+        self.attn_ln = nn.LayerNorm(n_state, eps=1e-6)
+        self.attn = PlainAttention(n_state, n_head)
+        self.mlp_ln = nn.LayerNorm(n_state, eps=1e-6)
+        self.mlp1 = nn.Linear(n_state, 4 * n_state)
+        self.mlp2 = nn.Linear(4 * n_state, n_state)
+
+    def forward(self, x, attn_bias):
+        x = x + self.attn(self.attn_ln(x), attn_bias)
+        return x + self.mlp2(F.gelu(self.mlp1(self.mlp_ln(x))))
+
+
+class S3TokenizerV1(nn.Module):
+    """Whisper encoder + Euclidean codebook: stride 2 gives 25 Hz codes
+    (speech_tokenizer_v1_25hz), 1 gives 50 Hz."""
+
+    def __init__(self, cfg: S3TokenizerConfig = S3TokenizerConfig(
+            codebook_size=4096), stride: int = 2):
+        super().__init__()
+        self.cfg, self.stride = cfg, stride
+        self.conv1 = nn.Conv1d(cfg.n_mels, cfg.n_state, 3, stride=stride,
+                               padding=1)
+        self.conv2 = nn.Conv1d(cfg.n_state, cfg.n_state, 3, stride=2,
+                               padding=1)
+        self.blocks = []
+        for i in range(cfg.n_layer):
+            blk = V1Block(cfg.n_state, cfg.n_head)
+            self.add_module(f"blocks_{i}", blk)
+            self.blocks.append(blk)
+        self.codebook = nn.Parameter(torch.zeros(cfg.codebook_size,
+                                                 cfg.n_state))
+
+    def init_weights(self, generator):
+        self.codebook.data.normal_(0.0, 1.0, generator=generator)
+
+    def encode(self, mel, mel_len):
+        """mel: (B, T, n_mels); mel_len: (B,). Returns (the encoder's
+        output (B, T', n_state), its lengths (B,))."""
+        m = mask_ops.make_non_pad_mask(mel_len, mel.shape[1]).to(mel.dtype)
+        x = F.gelu(self.conv1((mel * m[..., None]).transpose(1, 2)))
+        out_len = torch.div(mel_len - 1, self.stride,
+                            rounding_mode="floor") + 1
+        m = mask_ops.make_non_pad_mask(out_len, x.shape[-1]).to(x.dtype)
+        x = F.gelu(self.conv2(x * m[:, None, :])).transpose(1, 2)
+        out_len = torch.div(out_len - 1, 2, rounding_mode="floor") + 1
+        x = x + torch.as_tensor(sinusoid_table(x.shape[1], self.cfg.n_state),
+                                dtype=x.dtype, device=x.device)
+        pad = mask_ops.make_non_pad_mask(out_len, x.shape[1])
+        bias = mask_ops.mask_to_bias(pad[:, None, None, :])
+        for blk in self.blocks:
+            x = blk(x, bias)
+        return x, out_len
+
+    def forward(self, mel, mel_len):
+        """Returns (codes (B, T') int32, code lengths (B,))."""
+        x, out_len = self.encode(mel, mel_len)
+        return nearest_code(x, self.codebook), out_len
+
+
+def nearest_code(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """argmax over the codebook of -(|x|^2 - 2 x.e + |e|^2): (B, T) int32."""
+    dist = (-x.square().sum(-1, keepdim=True)
+            + 2 * torch.einsum("btd,cd->btc", x, codebook)
+            - codebook.square().sum(-1)[None, None, :])
+    return dist.argmax(dim=-1).to(torch.int32)
+
+
+WINDOW_FRAMES = 3000      # 30 s of 100 Hz mel frames
+OVERLAP_FRAMES = 400      # 4 s
+STRIDE_FRAMES = WINDOW_FRAMES - OVERLAP_FRAMES
+TOKEN_RATE = 25
+OVERLAP_DROP_TOKENS = (4 // 2) * TOKEN_RATE  # 50 tokens per merged side
+
+
+def split_windows(mel: np.ndarray, mel_len: int) -> list:
+    """(T, n_mels) -> windows of up to 3000 frames, every 2600."""
+    wins, start = [], 0
+    while start < mel_len:
+        end = min(start + WINDOW_FRAMES, mel_len)
+        wins.append(mel[start:end])
+        if end >= mel_len:
+            break
+        start += STRIDE_FRAMES
+    return wins
+
+
+def merge_window_tokens(segments: list) -> list:
+    """The windows' tokens joined, OVERLAP_DROP_TOKENS dropped on each
+    side of every junction."""
+    merged: list = []
+    for i, toks in enumerate(segments):
+        lo = 0 if i == 0 else OVERLAP_DROP_TOKENS
+        hi = len(toks) if i == len(segments) - 1 \
+            else len(toks) - OVERLAP_DROP_TOKENS
+        merged.extend(toks[lo:hi])
+    return merged
+
+
+@torch.no_grad()
+def quantize_long(model: nn.Module, mel: np.ndarray, mel_len: int) -> list:
+    """Tokens (a list of ints) of a mel (T, n_mels) of any length through
+    `model` (S3TokenizerV1 or V2): its windows padded to WINDOW_FRAMES and
+    encoded in one batched call on the model's device."""
+    if mel.shape[0] < mel_len:
+        raise ValueError(f"mel has {mel.shape[0]} frames < mel_len={mel_len}")
+    wins = split_windows(mel, mel_len)
+    batch = np.zeros((len(wins), WINDOW_FRAMES, mel.shape[1]), mel.dtype)
+    for i, w in enumerate(wins):
+        batch[i, : w.shape[0]] = w
+    dev = next(model.parameters()).device
+    codes, code_len = model(
+        torch.as_tensor(batch, device=dev),
+        torch.tensor([w.shape[0] for w in wins], dtype=torch.int32,
+                     device=dev))
+    codes, code_len = codes.cpu().numpy(), code_len.cpu().numpy()
+    segments = [codes[i, : code_len[i]].tolist() for i in range(len(wins))]
+    return segments[0] if len(segments) == 1 else \
+        merge_window_tokens(segments)
 
 
 def params_from_torch_state(state: dict) -> dict:

@@ -1,5 +1,7 @@
 """Mel frontends: whisper log-mel (16 kHz, S3 tokenizer input) on tensors,
-HiFi-GAN log-mel (24 kHz, speaker-encoder input) on the host in numpy;
+HiFi-GAN log-mel (24 kHz, flow and vocoder features) on tensors
+(differentiable: HiFT's generator loss backpropagates through it) and on
+the host in numpy; the STFT magnitude of the spectral discriminators;
 framing and the inverse STFT of the HiFT vocoder's head.
 
 Port of minimax_speech_tpu/ops/mel.py. Framing, padding, window and
@@ -105,19 +107,38 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int,
     return out.reshape(lead + out.shape[-1:])
 
 
-def stft_power(x: torch.Tensor, n_fft: int, hop: int,
-               pad: int) -> torch.Tensor:
-    """(..., T) -> |STFT|^2 (..., frames, 1 + n_fft//2): reflect-pad `pad`
-    samples each side, frames of n_fft every hop, periodic Hann window."""
+def stft(x: torch.Tensor, n_fft: int, hop: int, win_length: int | None = None,
+         pad: int | None = None) -> torch.Tensor:
+    """(..., T) -> complex STFT (..., frames, 1 + n_fft//2): reflect-pad
+    `pad` samples each side (default n_fft//2, centered), frames of n_fft
+    every hop, a periodic Hann window of win_length (default n_fft),
+    zero-padded in the middle to n_fft when shorter."""
+    p = n_fft // 2 if pad is None else pad
+    win_length = win_length or n_fft
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1])
-    if pad > 0:
-        flat = F.pad(flat, (pad, pad), mode="reflect")
-    frames = flat.unfold(-1, n_fft, hop)
-    spec = torch.fft.rfft(frames * hann_window(n_fft, x.dtype, x.device),
-                          n=n_fft, dim=-1)
+    if p > 0:
+        flat = F.pad(flat, (p, p), mode="reflect")
+    win = hann_window(win_length, x.dtype, x.device)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        win = F.pad(win, (lpad, n_fft - win_length - lpad))
+    spec = torch.fft.rfft(flat.unfold(-1, n_fft, hop) * win, n=n_fft, dim=-1)
+    return spec.reshape(lead + spec.shape[-2:])
+
+
+def stft_magnitude(x: torch.Tensor, n_fft: int, hop: int, win_length: int,
+                   center: bool = True, pad: int | None = None,
+                   power: float = 2.0, eps: float = 0.0) -> torch.Tensor:
+    """(..., T) -> (..., frames, 1 + n_fft//2): |STFT|^2 when power is 2,
+    else (|STFT|^2 + eps)^(power / 2). Reflect-pads n_fft//2 each side
+    with center (`pad` instead when given), `pad` or nothing without."""
+    p = (n_fft // 2 if center else 0) if pad is None else pad
+    spec = stft(x, n_fft, hop, win_length, p)
     mag2 = spec.real ** 2 + spec.imag ** 2
-    return mag2.reshape(lead + mag2.shape[-2:])
+    if power == 2.0:
+        return mag2
+    return torch.pow(mag2 + eps, power / 2.0)
 
 
 def whisper_log_mel(audio: torch.Tensor, n_mels: int = 128, sr: int = 16000,
@@ -125,7 +146,7 @@ def whisper_log_mel(audio: torch.Tensor, n_mels: int = 128, sr: int = 16000,
     """(..., T) 16 kHz audio -> (..., n_mels, frames) whisper log-mel:
     centered power STFT without its last frame, Slaney mel, log10 clamped
     at 1e-10, an 8-unit floor under the per-example max, (x + 4) / 4."""
-    mag = stft_power(audio.float(), n_fft, hop, n_fft // 2)[..., :-1, :]
+    mag = stft_magnitude(audio.float(), n_fft, hop, n_fft)[..., :-1, :]
     filters = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels),
                               device=audio.device)
     mel = torch.einsum("mf,...tf->...mt", filters, mag)
@@ -133,6 +154,23 @@ def whisper_log_mel(audio: torch.Tensor, n_mels: int = 128, sr: int = 16000,
     floor = log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0
     log_spec = torch.maximum(log_spec, floor)
     return (log_spec + 4.0) / 4.0
+
+
+def hifigan_log_mel(audio: torch.Tensor, n_fft: int = 1920, n_mels: int = 80,
+                    sr: int = 24000, hop: int = 480, win_length: int = 1920,
+                    fmin: float = 0.0,
+                    fmax: float | None = 8000.0) -> torch.Tensor:
+    """(..., T) 24 kHz audio -> (..., n_mels, frames), differentiable:
+    reflect-pad (n_fft - hop)/2, uncentered STFT, sqrt(|S|^2 + 1e-9),
+    mel, ln(clamp(x, 1e-5)). hifigan_log_mel_np computes the same on the
+    host."""
+    mag = stft_magnitude(audio, n_fft, hop, win_length, center=False,
+                         pad=(n_fft - hop) // 2, power=2.0)
+    mag = torch.sqrt(mag + 1e-9)
+    filters = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, fmin, fmax),
+                              dtype=mag.dtype, device=mag.device)
+    mel = torch.einsum("mf,...tf->...mt", filters, mag)
+    return torch.log(torch.clamp(mel, min=1e-5))
 
 
 def hifigan_log_mel_np(audio: np.ndarray, n_fft: int = 1920,

@@ -1,10 +1,10 @@
-"""The LM's training losses: label-smoothed cross-entropy, accuracy and
-DPO.
+"""Training losses: label-smoothed cross-entropy, accuracy and DPO for
+the LM; LSGAN, feature matching, TPR and KL for the codec and vocoder
+GANs.
 
-Port of the LM half of minimax_speech_tpu/utils/losses.py (the GAN losses
-wait for their slice).
+Port of minimax_speech_tpu/utils/losses.py.
 
-Each takes `group`, the data-parallel process group the global batch is
+Each LM loss takes `group`, the data-parallel process group the global batch is
 split over (None: the batch is whole). With a group, a function returns
 this rank's share of the global batch's value: its own sum over the
 global denominator (the valid tokens, rows or pairs summed over the
@@ -90,3 +90,60 @@ def dpo_loss(chosen_logp: torch.Tensor, rejected_logp: torch.Tensor,
     n = global_count(torch.tensor(diff.shape[0], device=diff.device), group)
     return (per_pair.sum() / n, beta * chosen_ratio,
             beta * rejected_ratio)
+
+
+# --- GAN losses (DAC-VAE and HiFT training) --------------------------------
+# Scores and feature maps are lists over sub-discriminators (feature maps
+# lists of lists); every reduction is over all elements, so the layout of
+# a score does not matter.
+
+def discriminator_loss(real_outputs, fake_outputs):
+    """LSGAN: sum over sub-discriminators of mean((1 - real)^2) +
+    mean(fake^2)."""
+    loss = 0.0
+    for dr, df in zip(real_outputs, fake_outputs):
+        loss = loss + torch.mean((1.0 - dr) ** 2) + torch.mean(df ** 2)
+    return loss
+
+
+def generator_adv_loss(fake_outputs):
+    loss = 0.0
+    for df in fake_outputs:
+        loss = loss + torch.mean((1.0 - df) ** 2)
+    return loss
+
+
+def feature_matching_loss(real_feats, fake_feats):
+    loss = 0.0
+    for fr, ff in zip(real_feats, fake_feats):
+        for r, f in zip(fr, ff):
+            loss = loss + torch.mean(torch.abs(r - f))
+    return loss
+
+
+def median(x: torch.Tensor) -> torch.Tensor:
+    """The median of all elements, the mean of the two middle ones for an
+    even count (as jnp.median; torch.median takes the lower one)."""
+    v = torch.sort(x.flatten()).values
+    n = v.numel()
+    return (v[(n - 1) // 2] + v[n // 2]) * 0.5
+
+
+def tpr_loss(real_outputs, fake_outputs, tau: float = 0.04):
+    """Truncated pointwise relativistic loss: per pair, over the elements
+    where d = real - fake lies below its median m, the mean of (d - m)^2,
+    truncated from above at tau (tau - relu(tau - L))."""
+    loss = 0.0
+    for dr, df in zip(real_outputs, fake_outputs):
+        d = dr - df
+        m = median(d)
+        mask = d < m
+        l_rel = torch.sum(torch.where(mask, (d - m) ** 2, 0.0)) / torch.clamp(
+            mask.sum(), min=1)
+        loss = loss + (tau - F.relu(tau - l_rel))
+    return loss
+
+
+def kl_loss(mu: torch.Tensor, logs: torch.Tensor) -> torch.Tensor:
+    """KL of N(mu, exp(logs)^2) to N(0, 1), mean over elements."""
+    return torch.mean(0.5 * (mu ** 2 + torch.exp(2 * logs) - 2 * logs - 1.0))

@@ -13,6 +13,8 @@ module path plus a leaf name fixed by the module type:
   LayerNorm, GroupNorm  weight    <- scale
   Embedding  weight               <- embedding
   QuantDense kernel_q (out, in) int8 <- kernel_q (in, out) int8, transposed
+  a module's `flax_perm` {name: perm}: same name, torch = flax
+                      transposed by perm (the discriminators' WNConv2d v)
   anything else: same name, same layout (RMSNorm weight, rel-pos
   biases, Snake alpha (1, 1, C), weight-norm g/v kept in flax layout,
   QuantDense scale and bias).
@@ -74,6 +76,11 @@ def _leaf(mod: nn.Module, pname: str):
         return "embedding", lambda a: a, lambda a: a
     if pname == "kernel_q":
         return "kernel_q", lambda a: a.T, lambda a: a.T
+    perm = getattr(mod, "flax_perm", {}).get(pname)
+    if perm is not None:
+        inv = tuple(int(i) for i in np.argsort(perm))
+        return (pname, lambda a: a.transpose(perm),
+                lambda a: a.transpose(inv))
     return ident
 
 

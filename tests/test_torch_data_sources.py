@@ -244,3 +244,45 @@ def test_parquet_opener_matches_jax(tmp_path, rng):
                 np.testing.assert_array_equal(o[k], r[k], err_msg=k)
             else:
                 assert o[k] == r[k], k
+
+
+@pytest.mark.parametrize("require_latent", [True, False])
+def test_opener_skips_truncated_wav_as_jax(tmp_path, rng, capsys,
+                                           require_latent):
+    """A 16-bit wav cut one byte short (numpy refuses its odd-length data
+    with ValueError) among good ones, and a wav with .txt and _fsq but no
+    latent: on both sides the opener skips and logs the truncated one
+    and raises nothing; with require_latent=False the latent-less wav
+    carries its whole tokens, with True it is skipped. Items identical."""
+    from tests.test_train_cli import make_corpus
+    from tests.test_cli import write_wav
+
+    lst = make_corpus(tmp_path, rng, n=3)
+    bad = tmp_path / "cut.wav"
+    write_wav(bad, synthetic_audio(rng, 0.3, 24000), 24000)
+    bad.write_bytes(bad.read_bytes()[:-1])
+    write_wav(tmp_path / "nolat.wav", synthetic_audio(rng, 0.5, 24000),
+              24000)
+    (tmp_path / "nolat.txt").write_text("no latent")
+    np.save(tmp_path / "nolat_fsq.npy", rng.integers(0, 6561, 13))
+    items = [{"src": w} for w in lst.read_text().splitlines()]
+    items[1:1] = [{"src": str(bad)}, {"src": str(tmp_path / "nolat.wav")}]
+    ours = list(t_dp.individual_file_opener([dict(i) for i in items],
+                                            require_latent=require_latent))
+    ref = list(j_dp.individual_file_opener([dict(i) for i in items],
+                                           require_latent=require_latent))
+    assert "opener skip" in capsys.readouterr().out
+    assert len(ours) == len(ref) == (4 if not require_latent else 3)
+    assert str(bad) not in [o["src"] for o in ours]
+    for o, r in zip(ours, ref):
+        assert o.keys() == r.keys()
+        for k in r:
+            if isinstance(r[k], np.ndarray):
+                assert o[k].dtype == r[k].dtype, k
+                np.testing.assert_array_equal(o[k], r[k], err_msg=k)
+            else:
+                assert o[k] == r[k], k
+    if not require_latent:
+        nolat = [o for o in ours if o["src"].endswith("nolat.wav")][0]
+        assert len(nolat["speech_token"]) == 13
+        assert "speech_latent" not in nolat

@@ -143,7 +143,15 @@ def test_chip_smoke_imports_no_jax():
         "minimax_speech_torch.parallel.layers, "
         "minimax_speech_torch.train.steps, "
         "minimax_speech_torch.utils.distributed, "
-        "minimax_speech_torch.utils.gang\n"
+        "minimax_speech_torch.utils.gang, "
+        "minimax_speech_torch.cli.train_dac, "
+        "minimax_speech_torch.cli.train_hift, "
+        "minimax_speech_torch.cli.extract_fsq, "
+        "minimax_speech_torch.cli.extract_dac_latents, "
+        "minimax_speech_torch.cli.extract_embedding, "
+        "minimax_speech_torch.cli.eval_dac, "
+        "minimax_speech_torch.train.gan_loop, "
+        "minimax_speech_torch.data.audio_folder\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'minimax_speech_tpu')]\n"
