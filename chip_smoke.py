@@ -44,8 +44,9 @@ a line; any failure ends the run with a non-zero exit:
      counted step must launch K2 24 times forward and 24 backward (one
      per layer) and K1 never;
   8. the training entry point, cli/train.main --model llm, at full width
-     for one epoch on a synthetic corpus: metrics, a checkpoint, and a
-     second call that resumes at the saved step;
+     (PATH_LM_LAYERS layers) for one epoch on a synthetic corpus:
+     metrics, a checkpoint, and a second call that resumes at the saved
+     step;
   9. LM training at reduced depth (2 layers) on the card and on the CPU
      with the same weights and batch: loss, accuracy, grad norm and the
      parameters after 2 steps within stated tolerances;
@@ -143,35 +144,37 @@ a line; any failure ends the run with a non-zero exit:
      each layer's forward again), K1 none; the first-step gradients of
      each remat mode within REMAT_GRAD_RTOL of a remat-off first step's,
      per leaf;
- 29. DPO (train/gan_steps.make_dpo_step) at full width: phase 7's LM as
-     the policy, a jittered copy as the frozen reference, 8 chosen and 8
-     rejected plans (other speech lengths) padded to 512; 2 warm-up and 3
-     timed steps and a profiled one with remat off, then with "dots"; K2
-     launches per step asserted, 96 + 48 off and 144 + 48 with "dots"
-     (four forwards, two under grad, recomputed), K1 none; over the first
-     5 steps the loss falls and the reward accuracy does not;
+ 29. DPO (train/gan_steps.make_dpo_step) at full width, PATH_LM_LAYERS
+     layers: phase 7's initialiser (seed 0) at that depth as the policy,
+     a jittered copy as the frozen reference, 8 chosen and 8 rejected plans (other speech
+     lengths) padded to 512; 2 warm-up and 3 timed steps and a profiled
+     one with remat off, then with "dots"; K2 launches per step
+     asserted, 24 + 12 off and 36 + 12 with "dots" (four forwards, two
+     under grad, recomputed), K1 none; over the first 5 steps the loss
+     falls and the reward accuracy does not;
  30. DPO at 2 layers, card (remat off, then "dots") against the CPU with
      the same weights, reference and batch (4 of phase 29's 8 pairs): the
      first step's sequence log-probs and every step's rewards, then phase
      9's checks on the loss, the reward accuracy, every leaf's first-step
      gradient and the parameters after 2 steps;
  31. cli/train.main --model llm --dpo --ref_ckpt (phase 29's reference
-     weights as a .npz) at full width for one epoch on phase 8's
-     corpus with a <stem>_fsq_reject.npy beside every wav: the four
-     dpo/* metrics in every row, K2's launches per step (phase 8 holds
-     the resume); then
-     the plain LM with --override model.lm.qwen.remat=true (policy
-     "dots") for one epoch, K2's launches per step.
+     weights as a .npz) at full width, PATH_LM_LAYERS layers, for one
+     epoch on phase 8's corpus with a <stem>_fsq_reject.npy beside every
+     wav: the four dpo/* metrics in every row, K2's launches per step
+     (phase 8 holds the resume); then the plain LM with --override
+     model.lm.qwen.remat=true (policy "dots") for one epoch at the same
+     depth, K2's launches per step.
  32. training over ranks (one process per rank): first world size 1
      through the distributed code on NCCL (while the gang's ranks start,
      before their first job), phase 7's first-step loss and every leaf's
      gradient within REMAT_GRAD_RTOL of the one-process step's; then two
      ranks (utils/gang.Gang: two cards over NCCL, or one card shared over
      gloo, named in the line) at tp = 2 and at dp = 2 (4 of the 8 plans a
-     rank), each against rank 0's one-process step on the whole batch:
+     rank), the LM at PATH_LM_LAYERS of its 24 layers (full widths),
+     each against rank 0's one-process step on the whole batch:
      phase 9's limits on loss, accuracy and grad norms over DIST_STEPS
      steps, every leaf's gathered first-step gradient and the parameters
-     after the steps; K2 24 + 24 launches per step on each rank, on its
+     after the steps; K2 6 + 6 launches per step on each rank, on its
      heads or rows; the DPO step the same way at tp = 2 (PATH_LM_LAYERS
      layers, 4 of phase 29's pairs, 2 steps; phase 30's metrics; K2
      4 x 6 + 2 x 6 per step on each rank); each rank's step_s, peak
@@ -215,7 +218,25 @@ a line; any failure ends the run with a non-zero exit:
      --export_npz, which the port loads); extract_fsq v2 (a 35 s file
      over two windows) and v1_25hz, extract_dac_latents with the export
      (latent_stats.json), extract_embedding, eval_dac on the export (its
-     JSON printed); K1 and K2 launched 0 times.
+     JSON printed); K1 and K2 launched 0 times;
+ 39. CAM++ x-vector conditioning: the default CAM++ (80-bin fbank,
+     blocks 12-24-16, 192-d) with random weights written into a
+     campplus.onnx by write_onnx and read by the port's reader; the
+     kaldi fbank and the embedding card vs CPU over 3 prompts of 3-10 s;
+     TTS(model_dir=...) with that campplus.onnx, the flow's speaker
+     encoder off, at the default widths (the LM at PATH_LM_LAYERS
+     layers): inference_zero_shot, K1 560 launches per utterance; the
+     synthesis CLI with --tokenizer_path on a written .tiktoken (byte
+     ranks and a few merges; the stdlib BPE where tiktoken and regex do
+     not import);
+ 40. the codec file: cli/codec.py compress then decompress of 60 s of
+     speech-like audio at the default DAC-VAE (5 s windows, 1 s
+     overlap): the chunked mu against a full-signal encode, the PCM card
+     vs CPU, audio seconds per second each way; K1 = K2 = 0;
+ 41. the audiotools transforms: build_transform with a chain that runs
+     every AudioSignal method the transforms use on phase 35's batch (64
+     x 9120 samples) card vs CPU with the same draws; cli/train_dac.py
+     for 2 iterations with that chain at --augment_prob 0.5; K1 = K2 = 0.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -227,6 +248,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -386,7 +408,6 @@ def build_phase(build) -> None:
     and spills, and count the tensor-core instructions (HMMA, or HGMMA) in
     the SASS of each kernel; fails on a spill or on an attention kernel
     without them."""
-    import re
 
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     secs = build.build(sources)
@@ -1069,11 +1090,11 @@ def stream_cross_check(pipes, inputs, device="cuda"):
 
 
 def synth_cli_phase(config: str = "configs/default.yaml", device="cuda",
-                    streams=(False, True), extra=()):
-    """Phase 13 (and 25 in mel mode, with `extra` overrides):
-    cli/synthesize.main at full width with the W8A8 LM (PATH_LM_LAYERS
-    deep), unfused and streaming as `streams` says, each writing a 24 kHz
-    wav."""
+                    streams=(False, True), extra=(), tokenizer=None):
+    """Phase 13 (and 25 in mel mode, with `extra` overrides; 39 with a
+    .tiktoken `tokenizer`): cli/synthesize.main at full width with the
+    W8A8 LM (PATH_LM_LAYERS deep), unfused and streaming as `streams`
+    says, each writing a 24 kHz wav."""
     import tempfile
     import wave
 
@@ -1092,14 +1113,16 @@ def synth_cli_phase(config: str = "configs/default.yaml", device="cuda",
                     "--override", "model.lm.qwen.quantized=true",
                     "--override", "model.max_speech_tokens=100",
                     "--override", f"model.lm.qwen.n_layers={PATH_LM_LAYERS}",
-                    *sum((["--override", o] for o in extra), [])]
+                    *sum((["--override", o] for o in extra), []),
+                    *(["--tokenizer_path", tokenizer] if tokenizer else [])]
             t0 = time.perf_counter()
             audio = synth_cli.main(argv + (["--stream"] if stream else []))
             secs = time.perf_counter() - t0
             with wave.open(str(out)) as w:
                 n, rate = w.getnframes(), w.getframerate()
             log(f"[synth-cli] {'--stream' if stream else 'unfused'} "
-                f"{list(extra)}: wrote {n} samples ({n / 24000:.2f} s) at "
+                f"{list(extra)}{' --tokenizer_path' if tokenizer else ''}: "
+                f"wrote {n} samples ({n / 24000:.2f} s) at "
                 f"{rate} Hz in {secs:.1f} s")
             if n != len(audio) or n == 0 or not np.isfinite(audio).all() \
                     or rate != 24000:
@@ -1980,7 +2003,7 @@ def write_rejects(lst: Path, seed: int = 2):
 
 def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
               model: str = "llm", dpo: bool = False, remat: str = "off",
-              resume: bool = True):
+              resume: bool = True, lm_layers: int | None = None):
     """Phases 8, 21 and 31: cli/train.main at full width for one epoch on
     a synthetic corpus (a batch holds about 8 utterances), then a second
     call that resumes at the saved step. The flow run also takes a cv
@@ -1992,7 +2015,8 @@ def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
     (ref_checkpoint), its rows hold the four dpo/* metrics; `remat` other than
     "off" sets model.lm.qwen.remat and its policy. An LM run on the card
     other than phase 8's must launch K2 as k2_per_step says, K1 never.
-    `resume` False skips the second call."""
+    `resume` False skips the second call; `lm_layers` cuts the LM's depth
+    (full widths)."""
     import shutil
     import tempfile
 
@@ -2016,10 +2040,12 @@ def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
         if remat != "off":
             argv += ["--override", "model.lm.qwen.remat=true",
                      "--override", f"model.lm.qwen.remat_policy={remat}"]
+        if lm_layers:
+            argv += ["--override", f"model.lm.qwen.n_layers={lm_layers}"]
         if dpo:
             write_rejects(lst)
             argv += ["--dpo", "--ref_ckpt", str(ref_checkpoint(
-                repo / config, root / "ref.npz"))]
+                repo / config, root / "ref.npz", lm_layers))]
         cv = ["--cv_data", str(lst)] if model == "flow" else []
         loss_key = "dpo/loss" if dpo else "loss"
         reset_counts()
@@ -2073,14 +2099,17 @@ def cli_phase(config: str = "configs/default.yaml", device: str = "cuda",
         shutil.rmtree(root, ignore_errors=True)
 
 
-def ref_checkpoint(config: Path, path: Path) -> Path:
+def ref_checkpoint(config: Path, path: Path, lm_layers=None) -> Path:
     """Phase 29's reference policy (seed 0 jittered from seed 1) at the
-    LM geometry of `config`, written as a .npz in the JAX package's
-    format: weights unlike the CLI's starting ones (seed 1986)."""
+    LM geometry of `config` (at lm_layers layers if given), written as a
+    .npz in the JAX package's format: weights unlike the CLI's starting
+    ones (seed 1986)."""
     from minimax_speech_torch import config as cfg_lib
     from minimax_speech_torch.utils import params_io
 
-    lm = lm_module(cfg_lib.load_tts_config(str(config)).lm, "cpu", 0, 1)
+    lm_cfg = cfg_lib.load_tts_config(str(config)).lm
+    lm = lm_module(lm_depth(lm_cfg, lm_layers) if lm_layers else lm_cfg,
+                   "cpu", 0, 1)
     params_io.save_params(str(path), lm)
     return path
 
@@ -2567,12 +2596,12 @@ def dpo_models(lm_cfg, device, mode="off", seed=0):
 
 
 def dpo_phase(lm_cfg, batch, card: str, device="cuda") -> dict:
-    """Phase 29: make_dpo_step at full width on the fixed DPO batch, the
-    policy phase 7's LM and the reference a jittered copy: 2 warm-up and
-    3 timed steps, a profiled one, with remat off (over its first 5 steps
-    the loss must fall and the reward accuracy not fall), then with
-    "dots"; K2 96 + 48 launches per step off, 144 + 48 with remat, K1
-    none."""
+    """Phase 29: make_dpo_step at the width and depth of lm_cfg on the
+    fixed DPO batch, the policy from phase 7's initialiser (seed 0) at
+    that depth and the reference a jittered copy: 2 warm-up and 3 timed steps, a profiled
+    one, with remat off (over its first 5 steps the loss must fall and
+    the reward accuracy not fall), then with "dots"; K2 4 + 2 launches
+    per layer and step off, 6 + 2 with remat, K1 none."""
     import torch
 
     from minimax_speech_torch.train import gan_steps
@@ -2700,7 +2729,7 @@ def _dist_state(kind: str, model_cfg, device, mesh=None, seed: int = 0,
     shallower LM after a deeper one takes the deeper one's weights of
     its layers; `weights`, a file of torch.save'd initial weights from
     `seed` (the main process's lm_weights), is read in place of the
-    initialiser's run, which takes a rank ~20 s at full width."""
+    initialiser's run, which takes a rank ~17 s at 6 LM layers."""
     import torch
 
     from minimax_speech_torch.models import flow as flow_mod
@@ -4215,6 +4244,480 @@ def gan_cli_phase(card: str, device="cuda", config="configs/default.yaml",
     return times
 
 
+# ---------------------------------------------------------------- phase 39
+def _varint(n: int) -> bytes:
+    out = b""
+    while True:
+        b7, n = n & 0x7F, n >> 7
+        out += bytes([b7 | (0x80 if n else 0)])
+        if not n:
+            return out
+
+
+def _pb_field(num: int, payload) -> bytes:
+    """A protobuf field: an int as a varint, bytes length-delimited."""
+    if isinstance(payload, int):
+        return _varint(num << 3) + _varint(payload)
+    return _varint(num << 3 | 2) + _varint(len(payload)) + payload
+
+
+def write_onnx(path, state: dict) -> Path:
+    """An .onnx file holding `state` ({name: float32 array}) as its
+    graph's initializers, the part of a campplus.onnx that
+    utils/onnx_reader.py reads: ModelProto.graph (7) ->
+    GraphProto.initializer (5) -> TensorProto dims (1), data_type (2,
+    1 = float32), name (8), raw_data (9)."""
+    graph = b"".join(_pb_field(5, b"".join(
+        [_pb_field(1, int(d)) for d in np.shape(a)]
+        + [_pb_field(2, 1), _pb_field(8, k.encode()),
+           _pb_field(9, np.ascontiguousarray(a, np.float32).tobytes())]))
+        for k, a in state.items())
+    path = Path(path)
+    path.write_bytes(_pb_field(7, graph))
+    return path
+
+
+CAMPPLUS_PROMPT_SECONDS = (3.0, 6.5, 10.0)
+FBANK_TOL = 1e-3       # log power, card vs CPU (cuFFT against pocketfft)
+XVECTOR_RTOL = 1e-4    # of the embedding's largest value, card vs CPU
+XVECTOR_TEXT = "Hello there, this is a test of the x-vector path."
+
+
+def upstream_campplus_name(path: str, leaf: str) -> str:
+    """The 3D-Speaker CAM++ state-dict name (what campplus.onnx and
+    utils/convert.campplus_params hold) of the port's parameter `leaf` of
+    module `path`."""
+    bn = {"gamma": "weight", "beta": "bias", "mean": "running_mean",
+          "var": "running_var"}
+    leaf = bn.get(leaf, leaf)
+    p = re.sub(r"^head\.layer(\d)_(\d)", r"head.layer\1.\2", path)
+    p = p.replace("shortcut_conv", "shortcut.0").replace(
+        "shortcut_bn", "shortcut.1")
+    p = re.sub(r"^block(\d+)_layer(\d+)\.(nonlinear\d)",
+               r"xvector.block\1.tdnnd\2.\3.batchnorm", p)
+    p = re.sub(r"^block(\d+)_layer(\d+)", r"xvector.block\1.tdnnd\2", p)
+    p = re.sub(r"^transit(\d)_bn", r"xvector.transit\1.nonlinear.batchnorm",
+               p)
+    p = re.sub(r"^transit(\d)_linear", r"xvector.transit\1.linear", p)
+    p = {"tdnn_linear": "xvector.tdnn.linear",
+         "tdnn_bn": "xvector.tdnn.nonlinear.batchnorm",
+         "out_bn": "xvector.out_nonlinear.batchnorm",
+         "dense_linear": "xvector.dense.linear",
+         "dense_bn": "xvector.dense.nonlinear.batchnorm"}.get(p, p)
+    return f"{p}.{leaf}"
+
+
+def campplus_state(seed: int = 39) -> dict:
+    """Random weights of the default CAM++ under the upstream names: conv
+    and dense weights at 1/sqrt(fan-in), batch norms with random
+    statistics and affines (the dense head's without one, as upstream)."""
+    from minimax_speech_torch.models.campplus import CAMPPlus
+
+    rng = np.random.default_rng(seed)
+    state = {}
+    for path, mod in CAMPPlus().named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            shape = tuple(p.shape)
+            if leaf == "weight":
+                a = rng.standard_normal(shape) / math.sqrt(
+                    math.prod(shape[1:]))
+                if path == "dense_linear":  # a Conv1d of kernel 1 upstream
+                    a = a[..., None]
+            elif leaf == "mean":
+                a = 0.1 * rng.standard_normal(shape)
+            elif leaf == "var":
+                a = 0.5 + rng.random(shape)
+            elif path == "dense_bn":  # affine=False upstream
+                continue
+            else:  # bias, gamma, beta
+                a = (leaf == "gamma") + 0.1 * rng.standard_normal(shape)
+            state[upstream_campplus_name(path, leaf)] = a.astype(np.float32)
+    return state
+
+
+def write_tiktoken(path: Path) -> Path:
+    """A .tiktoken asset: the 256 byte tokens and a few merges (each of
+    two earlier tokens), as tests/test_textnorm.py builds it."""
+    import base64
+
+    ranks = {bytes([i]): i for i in range(256)}
+    for m in (b"he", b"ll", b"llo", b"hello", b" t", b" th", b"th", b"is",
+              b" is", b" w", b" wo", b"or", b"ld", b" world"):
+        ranks[m] = len(ranks)
+    path.write_text("".join(f"{base64.b64encode(t).decode()} {r}\n"
+                            for t, r in ranks.items()))
+    return path
+
+
+def campplus_phase(card: str, device="cuda", config="configs/default.yaml",
+                   lm_layers: int = PATH_LM_LAYERS,
+                   max_tokens: int = 100) -> dict:
+    """Phase 39: the default CAM++ from a written campplus.onnx (the
+    reader exact at full size), the kaldi fbank and the embedding card vs
+    CPU over CAMPPLUS_PROMPT_SECONDS prompts; TTS(model_dir=...) with
+    that campplus.onnx and the flow's speaker encoder off at the widths
+    of `config` (the LM at lm_layers): inference_zero_shot with K1's
+    launches asserted per flow call; the synthesis CLI with a written
+    .tiktoken. Returns {"launches": K1's per utterance}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch.infer.api import TTS
+    from minimax_speech_torch.infer.pipeline import TTSPipeline
+    from minimax_speech_torch.infer.whisper_tokenizer import (
+        WhisperTikTokenizer, split_pieces)
+    from minimax_speech_torch.models.campplus import load_campplus
+    from minimax_speech_torch.ops.kaldi_fbank import kaldi_fbank
+    from minimax_speech_torch.utils import params_io
+    from minimax_speech_torch.utils.onnx_reader import read_onnx_initializers
+    from minimax_speech_torch import config as cfg_lib
+
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="campplus_", dir=repo / "build"))
+    try:
+        state = campplus_state()
+        onnx = write_onnx(root / "campplus.onnx", state)
+        back = read_onnx_initializers(str(onnx))
+        if back.keys() != state.keys() or any(
+                not np.array_equal(back[k], v) for k, v in state.items()):
+            raise AssertionError("campplus.onnx does not read back exactly")
+        on_card, on_cpu = (load_campplus(str(onnx), device=d)
+                           for d in (device, "cpu"))
+        rng = np.random.default_rng(39)
+        worst_fb, worst_xv, card_s, secs = 0.0, 0.0, 0.0, 0.0
+        for sec in CAMPPLUS_PROMPT_SECONDS:
+            audio = speechlike(rng, int(sec * 16000), 16000)
+            feats, embs = [], []
+            for model, dev in ((on_card, device), (on_cpu, "cpu")):
+                x = torch.as_tensor(audio, device=dev)
+                if dev == device:
+                    sync(device)
+                t0 = time.perf_counter()
+                feat = kaldi_fbank(x)
+                with torch.no_grad():
+                    emb = model((feat - feat.mean(0, keepdim=True))[None])
+                if dev == device:
+                    sync(device)
+                    card_s += time.perf_counter() - t0
+                feats.append(feat.cpu().numpy())
+                embs.append(emb.cpu().numpy())
+            secs += sec
+            worst_fb = max(worst_fb, float(np.abs(feats[0] - feats[1]).max()))
+            worst_xv = max(worst_xv, float(np.abs(embs[0] - embs[1]).max()
+                                           / np.abs(embs[1]).max()))
+        log(f"[campplus] {card} | default CAM++ ({len(state)} tensors) from "
+            f"campplus.onnx, read exactly; {len(CAMPPLUS_PROMPT_SECONDS)} "
+            f"prompts {CAMPPLUS_PROMPT_SECONDS} s: fbank card vs CPU max "
+            f"|diff| {worst_fb:.2e} (tol {FBANK_TOL:g}), x-vector "
+            f"{worst_xv:.2e} of its largest (tol {XVECTOR_RTOL:g}); fbank + "
+            f"CAM++ on the card {secs / card_s:.1f} audio-s per s "
+            f"(first calls included)")
+        if worst_fb > FBANK_TOL or worst_xv > XVECTOR_RTOL:
+            raise AssertionError("CAM++ differs card vs CPU")
+
+        d = root / "model"
+        d.mkdir()
+        (d / "config.yaml").write_text(  # CAM++'s 192-d x-vector in
+            f"__base__: {repo / config}\nmodel:\n  max_speech_tokens: "
+            f"{max_tokens}\n  lm:\n    spk_embed_dim: 192\n    qwen:\n"
+            f"      n_layers: {lm_layers}\n  flow:\n    spk_embed_dim: 192\n"
+            f"    use_speaker_encoder: false\n")
+        cfg = cfg_lib.load_tts_config(d / "config.yaml")
+        t0 = time.perf_counter()
+        pipe = TTSPipeline.from_random(cfg, seed=0, device=device)
+        for name, m in pipe.models().items():
+            params_io.save_params(str(d / f"{'llm' if name == 'lm' else name}"
+                                      ".npz"), m)
+        del pipe
+        shutil.copy(onnx, d / "campplus.onnx")
+        tts = TTS(model_dir=str(d), device=device)
+        load_s = time.perf_counter() - t0
+        if tts._campplus is None or cfg.flow.use_speaker_encoder:
+            raise AssertionError("the model_dir's campplus.onnx is unused")
+        prompt = speechlike(rng, int(CAMPPLUS_PROMPT_SECONDS[0] * 16000),
+                            16000)
+        pieces = tts.frontend.text_normalize(XVECTOR_TEXT)
+        expect = attn_calls_per_step(cfg.flow.unet) * cfg.flow.n_timesteps \
+            * len(pieces)
+        reset_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        wav = np.concatenate([o["tts_speech"] for o in tts.inference_zero_shot(
+            XVECTOR_TEXT, "a reference", prompt)], axis=1)
+        sync(device)
+        total_s = time.perf_counter() - t0
+        k2, k1 = read_counts()
+        log(f"[campplus] {card} | TTS(model_dir) with campplus.onnx, "
+            f"flow.use_speaker_encoder false, LM {lm_layers} layers: "
+            f"written and loaded in {load_s:.1f} s; inference_zero_shot "
+            f"{wav.shape[1] / 24000:.2f} s of audio in {total_s:.2f} s, "
+            f"{len(pieces)} piece(s); K1 launches {k1} (expected {expect}), "
+            f"K2 {k2}")
+        if k1 != (expect if device == "cuda" else 0) or sum(k2.values()) \
+                or wav.shape[1] == 0 \
+                or not np.isfinite(wav).all():
+            raise AssertionError(f"x-vector synthesis: K1 {k1}, {wav.shape}")
+        del tts
+
+        # the synthesis CLI on the tokenizer's standard-library path, with
+        # tiktoken and regex hidden from the import system
+        asset = write_tiktoken(root / "tiny.tiktoken")
+        text = "Hello there, this is a test."
+        first = WhisperTikTokenizer(str(asset))
+        hidden = {m: sys.modules.get(m) for m in ("tiktoken", "regex")}
+        sys.modules.update(dict.fromkeys(hidden))
+        try:
+            tok = WhisperTikTokenizer(str(asset))
+            if tok._enc is not None or tok._split is not split_pieces:
+                raise AssertionError("the stdlib BPE path was not taken")
+            if tok.encode(text) != first.encode(text):
+                raise AssertionError("the stdlib BPE differs from the "
+                                     "first path that imports")
+            log(f"[campplus] {text!r} through the stdlib BPE: "
+                f"{len(tok.encode(text))} ids, as the "
+                f"{'tiktoken' if first._enc is not None else 'regex'} "
+                f"path gives them")
+            synth_cli_phase(config, device=device, streams=(False,),
+                            tokenizer=str(asset))
+        finally:
+            for m, mod in hidden.items():
+                if mod is None:
+                    sys.modules.pop(m, None)
+                else:
+                    sys.modules[m] = mod
+        return {"launches": expect // len(pieces)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+CODEC_SECONDS, CODEC_WIN, CODEC_OVERLAP = 60.0, 5.0, 24000
+
+
+def codec_phase(card: str, device="cuda", seconds: float = CODEC_SECONDS,
+                cpu_windows: int = 2) -> dict:
+    """Phase 40: cli/codec.py compress then decompress of `seconds` of
+    speech-like 24 kHz audio at the default DAC-VAE (seed 0), CODEC_WIN s
+    windows with CODEC_OVERLAP samples of overlap, each direction's
+    audio seconds per second; the artifact's chunked mu against one
+    full-signal encode of the same normalised signal on the card (the
+    interior, JAX's test's limits); the first cpu_windows windows
+    decompressed card vs CPU (PCM within PCM_TOL_LSB); K1 = K2 = 0."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch.cli import codec as codec_cli
+    from minimax_speech_torch.cli.synthesize import write_wav
+    from minimax_speech_torch.data.pipeline import _load_audio
+    from minimax_speech_torch.infer.codec_file import (DACVAECodec,
+                                                       DACVAEFile,
+                                                       loudness_db)
+    from minimax_speech_torch.models import dac_vae
+    from minimax_speech_torch.utils import params_io
+
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="codec_", dir=repo / "build"))
+    try:
+        audio = speechlike(np.random.default_rng(40), int(seconds * 24000))
+        write_wav(str(root / "speech.wav"), audio, 24000)
+        args = ["--win", str(CODEC_WIN), "--overlap", str(CODEC_OVERLAP),
+                "--device", device]
+        reset_counts()
+        t0 = time.perf_counter()
+        (dacz,) = codec_cli.main(["compress", "--inputs",
+                                  str(root / "speech.wav"), *args])
+        comp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (wav,) = codec_cli.main(["decompress", "--inputs", str(dacz),
+                                 "--out_dir", str(root), *args])
+        dec_s = time.perf_counter() - t0
+        k2, k1 = read_counts()
+
+        def seed0(dev):
+            m = params_io.init_params(dac_vae.DACVAE(dac_vae.DACVAEConfig()),
+                                      torch.Generator().manual_seed(0))
+            return DACVAECodec(m.to(dev), win_duration=CODEC_WIN,
+                               overlap=CODEC_OVERLAP)
+
+        card_codec = seed0(device)
+        art = DACVAEFile.load(dacz)
+        x, _ = _load_audio(str(root / "speech.wav"))
+        x = x * (10.0 ** ((-16.0 - loudness_db(x)) / 20.0))
+        x = x / max(float(np.abs(x).max()), 1.0)
+        full = card_codec.encode_mu(dac_vae.pad_to_hop(x, card_codec.hop))
+        edge = card_codec.ov_lat // 2
+        chunked = art.latents.astype(np.float32)
+        ok = np.allclose(chunked[edge:-edge], full[edge:-edge], atol=5e-3,
+                         rtol=5e-2)
+        mu_diff = float(np.abs(chunked[edge:-edge] - full[edge:-edge]).max())
+        short = DACVAEFile(latents=art.latents[: cpu_windows
+                                               * card_codec.win_lat],
+                           original_length=cpu_windows * card_codec.win,
+                           input_db=art.input_db, sample_rate=24000,
+                           chunk_length=art.chunk_length)
+        pcm = [np.round(np.clip(c.decompress(short), -1, 1) * 32767)
+               for c in (card_codec, seed0("cpu"))]
+        lsb = int(np.abs(pcm[0] - pcm[1]).max())
+        out, sr = _load_audio(str(wav))
+        log(f"[codec] {card} | cli/codec.py at the default DAC-VAE, "
+            f"{seconds:.0f} s at 24 kHz, {CODEC_WIN:g} s windows, "
+            f"{CODEC_OVERLAP} samples of overlap: compress {comp_s:.2f} s "
+            f"({seconds / comp_s:.1f} audio-s per s), {art.latents.shape} "
+            f"float16 latents; decompress {dec_s:.2f} s ({seconds / dec_s:.1f}"
+            f" audio-s per s), {len(out)} samples at {sr} Hz; chunked mu vs "
+            f"full-signal encode (interior) max |diff| {mu_diff:.2e}; "
+            f"{cpu_windows} windows decompressed card vs CPU max |diff| "
+            f"{lsb} LSB (tol {PCM_TOL_LSB}); K1 {k1}, K2 {k2}")
+        if not ok or lsb > PCM_TOL_LSB or k1 or sum(k2.values()) \
+                or len(out) != len(audio) or not np.isfinite(out).all():
+            raise AssertionError("the codec file phase failed")
+        return {"compress_audio_s_per_s": seconds / comp_s,
+                "decompress_audio_s_per_s": seconds / dec_s}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# every transform that calls an AudioSignal method, at its defaults: the
+# chain of phase 41 (and its CLI run's --augment). The quantizers come
+# first, on the same input on both devices: later, float noise of a few
+# ulps decides which level a sample near a level's edge takes (with 8
+# levels the edge is at 0, where masked and denoised audio lies), a step
+# of 2/q. The two that threshold an FFT magnitude come last.
+TRANSFORM_CHAIN = [
+    "Quantization", "MuLawQuantization", "ClippingDistortion",
+    "VolumeChange", "ShiftPhase", "Equalizer", "LowPass", "HighPass",
+    "Smoothing", "BackgroundNoise", "RoomImpulseResponse", "NoiseFloor",
+    "CrossTalk", "CorruptPhase", "FrequencyMask", "TimeMask", "TimeNoise",
+    "FrequencyNoise", "MaskLowMagnitudes", "SpectralDenoising"]
+TRANSFORM_RTOL = 1e-4    # of the batch's peak, card vs CPU per sample
+# a quantizer rounds a value at a level's edge to the next level where
+# float32 log1p/exp differ by an ulp between the devices: the share of
+# such samples allowed
+TRANSFORM_FLIP_SHARE = 1e-3
+# MaskLowMagnitudes and SpectralDenoising compare an STFT magnitude in dB
+# with a threshold: a bin within cuFFT's and pocketfft's rounding of it is
+# kept on one device and masked on the other (on an NVIDIA H100 80GB
+# HBM3, with another draw order: 0.4% and 0.04% of the samples moved, by
+# at most 5.8e-4 and 1.5e-4 of the peak); they, and the whole chain, are
+# held to this share of the peak per sample, the chain's mean |diff| to
+# TRANSFORM_RTOL
+THRESHOLD_RTOL = 1e-2
+THRESHOLDING = ("MaskLowMagnitudes", "SpectralDenoising")
+
+
+def transforms_phase(card: str, device="cuda", batch: int = DAC_BATCH,
+                     cli_batch: int | None = None,
+                     config="configs/default.yaml") -> dict:
+    """Phase 41: build_transform(VolumeNorm | TRANSFORM_CHAIN |
+    RescaleAudio) on phase 35's batch (batch x 9120 samples) with one set
+    of draws (a CPU generator) applied on the card and on the CPU: each
+    stage alone on the same input, its samples within TRANSFORM_RTOL of
+    the peak (the quantizers': all but TRANSFORM_FLIP_SHARE of them; the
+    thresholding stages' within THRESHOLD_RTOL), then the whole chain
+    (within THRESHOLD_RTOL, its mean |diff| within TRANSFORM_RTOL); then
+    cli/train_dac.py for 2 iterations with that chain at --augment_prob
+    0.5. K1 = K2 = 0."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch.cli import train_dac
+    from minimax_speech_torch.utils.audio_signal import AudioSignal
+    from minimax_speech_torch.utils.audio_transforms import build_transform
+
+    rng = np.random.default_rng(41)
+    n = int(DAC_SECONDS * 24000) // 480 * 480
+    audio = np.stack([speechlike(rng, n) for _ in range(batch)])[:, None]
+    tfm = build_transform(1.0, preprocess=["VolumeNorm"],
+                          augment=TRANSFORM_CHAIN,
+                          postprocess=["RescaleAudio"])
+    sigs = {d: AudioSignal(audio, 24000, device=d) for d in (device, "cpu")}
+    draws = tfm.draw(torch.Generator().manual_seed(41), sigs["cpu"])
+    stages = [(t, d) for comp, cd in zip(tfm.transforms, draws["tfm"]["each"])
+              for t, d in zip(comp.transforms, cd["tfm"]["each"])]
+    reset_counts()
+    report, bad = [], []
+    for t, d in stages + [(tfm, draws)]:
+        outs = {}
+        for dev, sig in sigs.items():
+            sync(device)
+            t0 = time.perf_counter()
+            out = t.apply(d, sig).audio_data
+            sync(device)
+            outs[dev] = (out.cpu().numpy(), time.perf_counter() - t0)
+        ref, ours = outs["cpu"][0], outs[device][0]
+        diff = np.abs(ours - ref)
+        peak = max(float(np.abs(ref).max()), 1e-12)
+        share = float((diff > TRANSFORM_RTOL * peak).mean())
+        name = t.name if t is not tfm else "the whole chain"
+        report.append(f"{name} {diff.max() / peak:.1e}/{share:.1e}"
+                      + (f" (mean {diff.mean() / peak:.1e})" if t is tfm
+                         else "")
+                      + f" {outs[device][1] * 1e3:.0f}/"
+                        f"{outs['cpu'][1] * 1e3:.0f} ms")
+        if t is tfm:
+            ok = diff.mean() <= TRANSFORM_RTOL * peak \
+                and diff.max() <= THRESHOLD_RTOL * peak
+        elif name in THRESHOLDING:
+            ok = diff.max() <= THRESHOLD_RTOL * peak
+        else:
+            ok = share <= (TRANSFORM_FLIP_SHARE if "Quantization" in name
+                           else 0.0)
+        if not ok or not np.isfinite(ours).all():
+            bad.append(name)
+    k2, k1 = read_counts()
+    log(f"[transforms] {card} | {batch} x {n} samples, card vs CPU with one "
+        f"set of draws: per stage max |diff| / peak, share beyond "
+        f"{TRANSFORM_RTOL:g} of the peak, card / CPU ms: "
+        + "; ".join(report) + f"; K1 {k1}, K2 {k2}")
+    if bad or k1 or sum(k2.values()):
+        raise AssertionError(f"transforms differ card vs CPU: {bad}")
+
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="transforms_", dir=repo / "build"))
+    try:
+        (root / "corpus").mkdir()
+        write_corpus(root / "corpus", n=4)
+        reset_counts()
+        t0 = time.perf_counter()
+        train_dac.main([
+            "--train_folders", str(root / "corpus"), "--model_dir",
+            str(root / "dac"), "--config", str(repo / config), "--device",
+            device, "--num_iters", "2", "--log_interval", "1",
+            "--warmup_steps", "0", "--preprocess", "VolumeNorm",
+            "--augment", *TRANSFORM_CHAIN, "--postprocess", "RescaleAudio",
+            "--augment_prob", "0.5"]
+            + (["--batch_size", str(cli_batch)] if cli_batch else []))
+        cli_s = time.perf_counter() - t0
+        k2, k1 = read_counts()
+        rows = [json.loads(line) for line in
+                (root / "dac" / "dac_metrics.jsonl").read_text().splitlines()]
+        log(f"[transforms] {card} | cli/train_dac.py 2 iterations with the "
+            f"chain at --augment_prob 0.5: {cli_s:.1f} s; losses "
+            f"{[round(r.get('gen/loss', float('nan')), 4) for r in rows]}; "
+            f"K1 {k1}, K2 {k2}")
+        if k1 or sum(k2.values()) or [r["step"] for r in rows] != [0, 1] \
+                or not all(np.isfinite(v) for r in rows for v in r.values()
+                           if isinstance(v, float)):
+            raise AssertionError("train_dac with transforms failed")
+        return {"cli_s": cli_s}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def tf32_off():
     """fp32 matmuls and convolutions without TF32, in this process (the
     main one, or a rank of phases 32-33's gang)."""
@@ -4288,7 +4791,7 @@ def main() -> int:
                                       "step_s", "tokens_per_s")})
     torch.cuda.empty_cache()
     t0 = phase_time(7, t0)
-    cli_phase()
+    cli_phase(lm_layers=PATH_LM_LAYERS)
     t0 = phase_time(8, t0)
     train_cross_check(train_lm, batch)
     t0 = phase_time(9, t0)
@@ -4387,12 +4890,12 @@ def main() -> int:
         "per_step": lm_rec["launches_per_step"]})
     t0 = phase_time(28, t0)
     dbatch = dpo_batch(train_lm)
-    dpo_rec = dpo_phase(train_lm, dbatch, card)
+    dpo_rec = dpo_phase(shallow_lm(TTSConfig()).lm, dbatch, card)
     t0 = phase_time(29, t0)
     dpo_cross_check(train_lm, dbatch)
     t0 = phase_time(30, t0)
-    cli_phase(dpo=True, resume=False)
-    cli_phase(remat="dots", resume=False)
+    cli_phase(dpo=True, resume=False, lm_layers=PATH_LM_LAYERS)
+    cli_phase(remat="dots", resume=False, lm_layers=PATH_LM_LAYERS)
     t0 = phase_time(31, t0)
 
     # training over two ranks: phases 32-34, each timed; world size 1
@@ -4403,17 +4906,20 @@ def main() -> int:
     initial = Path(__file__).resolve().parent / "build" / "dist_lm.pt"
     try:
         world1_phase(train_lm, batch)
-        # phase 7's weights (as lm_module asks for them: a cache hit),
+        # the ranks' LM and DPO jobs at PATH_LM_LAYERS of 24 layers, full
+        # widths (K2's shapes per rank are the full model's), from
+        # phase 31's weights (as lm_module asks for them: a cache hit),
         # which the ranks read in place of running the initialiser
+        dist_cfg = shallow_lm(TTSConfig()).lm
         initial.parent.mkdir(parents=True, exist_ok=True)
-        torch.save(lm_weights(remat_lm(train_lm, "off"), 0, None), initial)
+        torch.save(lm_weights(remat_lm(dist_cfg, "off"), 0, None), initial)
         lm_weights.cache_clear()
         log(f"[time] phase 32, world size 1 with the ranks' start-up and "
             f"the weights' file: {time.perf_counter() - t0:.1f} s")
-        dist_lm = dist_phase(gang, "lm", train_lm, batch, card, backend,
+        dist_lm = dist_phase(gang, "lm", dist_cfg, batch, card, backend,
                              weights=str(initial))
         dist_dpo = dist_phase(
-            gang, "dpo", shallow_lm(TTSConfig()).lm,
+            gang, "dpo", dist_cfg,
             {k: v[:DPO_CROSS_BATCH] for k, v in dbatch.items()}, card,
             backend, meshes=((1, 2),), steps_n=2)
         lens = [int(n) for n in batch["seq_len"]]
@@ -4453,10 +4959,23 @@ def main() -> int:
     v1_cross_check()
     t0 = phase_time(37, t0)
     gan_cli_phase(card)
-    phase_time(38, t0)
+    t0 = phase_time(38, t0)
+
+    # the rest of inference and the transforms: phases 39-41
+    xvector = campplus_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(39, t0)
+    codec_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(40, t0)
+    transforms_phase(card)
+    phase_time(41, t0)
+    record["launches_by_path"]["xvector_zero_shot"] = xvector["launches"]
+    k2["launches_by_path"]["xvector_zero_shot"] = 0
     for rec in (record, k2):  # asserted 0 in each phase
-        rec["launches_by_path"].update(dac_gan_train=0, hift_gan_train=0,
-                                       gan_and_extract_cli=0)
+        rec["launches_by_path"].update(
+            dac_gan_train=0, hift_gan_train=0, gan_and_extract_cli=0,
+            codec_file_cli=0, transforms_and_train_dac=0)
     # totals over the timed steps, as lm_train's; per step beside them
     paths = {f"lm_train_remat_{m}": r for m, r in remat_rec.items()}
     paths.update({f"dpo_train_remat_{m}": r for m, r in dpo_rec.items()})

@@ -8,22 +8,21 @@ Port of minimax_speech_tpu/cli/convert_checkpoint.py:
 kinds: llm (Qwen2LM), flow (CausalMaskedDiffWithXvec), hift
 (HiFTGenerator, the mel mode's codec.npz), dac (the DACVAE generator, the
 latent mode's codec.npz), s3 (S3TokenizerV2), qwen (a bare HF
-Qwen2ForCausalLM state dict). The .npz is the format both packages load
-(flax paths joined by '||'), so cli/synthesize.py --ckpt_dir and the JAX
-package read the same files. campplus, matcha and matcha_hifigan are not
-ported yet and raise.
+Qwen2ForCausalLM state dict), campplus (CAM++, a torch state dict or a
+campplus.onnx). The .npz is the format both packages load (flax paths
+joined by '||'), so cli/synthesize.py --ckpt_dir and the JAX package
+read the same files. matcha and matcha_hifigan are not ported yet and
+raise.
 """
 from __future__ import annotations
 
 import argparse
 
-KINDS = ("llm", "flow", "hift", "dac", "s3", "qwen")
+KINDS = ("llm", "flow", "hift", "dac", "s3", "qwen", "campplus")
 NOT_PORTED = {
-    "campplus": "models/campplus.py and utils/onnx_reader.py (ROADMAP.md, "
-                "queue 1, item 6: CAM++)",
-    "matcha": "models/matcha.py (ROADMAP.md, queue 1, item 6: Matcha)",
+    "matcha": "models/matcha.py (ROADMAP.md, queue 1, item 4: Matcha)",
     "matcha_hifigan": "models/matcha_hifigan.py (ROADMAP.md, queue 1, "
-                      "item 6: Matcha)",
+                      "item 4: Matcha)",
 }
 
 
@@ -57,6 +56,8 @@ def convert(kind: str, state: dict, cfg) -> dict:
         return dac_vae.params_from_torch_state(state, cfg.dac)
     if kind == "s3":
         return s3.params_from_torch_state(state)
+    if kind == "campplus":
+        return conv.campplus_params(state)
     params, embed, _ = qwen2.params_from_hf_state(state, cfg.lm.qwen)
     return {"params": {"llm": params["params"],
                        "text_embedding": {"embedding": embed}}}
@@ -81,7 +82,13 @@ def main(argv=None):
     from minimax_speech_torch.utils.params_io import save_tree
 
     cfg = cfg_lib.load_tts_config(args.config, args.override)
-    variables = convert(args.kind, load_torch_state(args.src), cfg)
+    if args.kind == "campplus" and args.src.endswith(".onnx"):
+        from minimax_speech_torch.utils.onnx_reader import \
+            read_onnx_initializers
+        state = read_onnx_initializers(args.src)
+    else:
+        state = load_torch_state(args.src)
+    variables = convert(args.kind, state, cfg)
     save_tree(args.out, variables)
     n = sum(np.asarray(a).size for a in np.load(args.out).values())
     print(f"wrote {args.out}: {n / 1e6:.1f}M params")

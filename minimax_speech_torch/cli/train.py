@@ -42,7 +42,8 @@ bf16 route); the CLI says so. Per-layer remat of the LM:
 --override model.lm.qwen.remat=true (model.lm.qwen.remat_policy none or
 dots).
 
-Not ported yet: a tokenizer path (raises NotImplementedError).
+--tokenizer_path takes a .tiktoken asset (the Whisper tokenizer); a
+Hugging Face Qwen directory raises, as the repo holds no vocabulary.
 --dp/--tp > 1 without --distributed raise: one process drives one GPU
 (start the ranks with python -m minimax_speech_torch.cli.launch).
 """

@@ -13,8 +13,11 @@ decode of the first crop every --sample_freq iterations
 weights in the JAX package's .npz format, which its DACVAE loads). Runs
 on --device (default cuda; raises without a GPU).
 
-Only the Identity transform chain is ported (the JAX default): any other
---preprocess/--augment/--postprocess raises NotImplementedError.
+The audiotools chain (utils/audio_transforms.build_transform: the
+--preprocess, --augment at --augment_prob, and --postprocess transforms
+by name) runs on each batch's crops on the device, its draws from a
+generator seeded TRANSFORM_SEED + the iteration; the Identity-only chain
+(the default) is skipped.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from pathlib import Path
 import numpy as np
 
 INIT_SEED = 0
+TRANSFORM_SEED = 10_000_019  # the JAX CLI's key for iteration i: this + i
 
 
 def parse_args(argv=None):
@@ -45,6 +49,7 @@ def parse_args(argv=None):
     p.add_argument("--preprocess", nargs="*", default=["Identity"])
     p.add_argument("--augment", nargs="*", default=["Identity"])
     p.add_argument("--postprocess", nargs="*", default=["Identity"])
+    p.add_argument("--augment_prob", type=float, default=0.0)
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches prepared ahead in a background thread")
     p.add_argument("--export_npz", type=str, default=None,
@@ -64,19 +69,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_identity(args):
-    """Only the Identity transform chain is ported."""
-    if not (args.preprocess == args.augment == args.postprocess
-            == ["Identity"]):
-        raise NotImplementedError(
-            "audio transforms other than Identity need "
-            "utils/audio_signal.py and utils/audio_transforms.py, which are "
-            "not ported yet (ROADMAP.md, queue 1, item 6)")
-
-
 def main(argv=None):
     args = parse_args(argv)
-    check_identity(args)
     import torch
 
     from minimax_speech_torch import config as cfg_lib
@@ -85,6 +79,8 @@ def main(argv=None):
     from minimax_speech_torch.train import gan_steps, schedule, steps
     from minimax_speech_torch.train.gan_loop import GanRun
     from minimax_speech_torch.utils import params_io
+    from minimax_speech_torch.utils.audio_signal import AudioSignal
+    from minimax_speech_torch.utils.audio_transforms import build_transform
     from minimax_speech_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -115,9 +111,22 @@ def main(argv=None):
     ds = AudioFolder(args.train_folders, duration=args.duration,
                      sample_rate=cfg.sample_rate, seed=run.start)
 
+    tfm = build_transform(augment_prob=args.augment_prob,
+                          preprocess=args.preprocess, augment=args.augment,
+                          postprocess=args.postprocess)
+    identity_only = (args.preprocess == args.augment == args.postprocess
+                     == ["Identity"])
+
     def batches():
-        for audio in ds.infinite_batches(args.batch_size):
-            yield {"audio": audio[:, :n]}
+        for i, audio in enumerate(ds.infinite_batches(args.batch_size)):
+            audio = audio[:, :n]
+            if not identity_only:
+                gen = torch.Generator().manual_seed(
+                    TRANSFORM_SEED + run.start + i)
+                audio = tfm(gen, AudioSignal(audio[:, None, :],
+                                             cfg.sample_rate, device=device)
+                            ).audio_data[:, 0, :]
+            yield {"audio": audio}
 
     def draws(batch, generator):
         return gan_steps.dac_eps(cfg, *batch["audio"].shape, generator)

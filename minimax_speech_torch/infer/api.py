@@ -9,9 +9,12 @@ Port of minimax_speech_tpu/infer/api.py, both output modes:
 
 Every method is a generator of {'tts_speech': np.ndarray (1, T)}, the
 per-chunk RTF logged. A model_dir holds {llm,flow,codec,s3}.npz in the
-JAX package's format and, optionally, config.yaml. The campplus x-vector
-conditioning (models/campplus.py, ops/kaldi_fbank.py) is not ported
-yet: asking for it raises.
+JAX package's format and, optionally, config.yaml and campplus.onnx.
+With CAM++ weights (campplus=, or that campplus.onnx) and the flow's
+speaker encoder off (flow.use_speaker_encoder false), the speaker
+conditioning is the prompt's CAM++ x-vector (models/campplus.py,
+ops/kaldi_fbank.py): the flow takes it unit-normed, the LM through
+project_xvector.
 """
 from __future__ import annotations
 
@@ -28,15 +31,9 @@ from minimax_speech_torch.data.pipeline import linear_resample
 from minimax_speech_torch.infer.frontend import Frontend
 from minimax_speech_torch.infer.pipeline import TTSPipeline, next_bucket
 from minimax_speech_torch.infer.session import StreamingSession
+from minimax_speech_torch.models.campplus import load_campplus, xvector
 from minimax_speech_torch.models.flow import flow_inference
 from minimax_speech_torch.utils.params_io import load_params
-
-
-def _no_campplus(path) -> NotImplementedError:
-    return NotImplementedError(
-        f"campplus x-vector conditioning ({path}) needs models/campplus.py "
-        "and ops/kaldi_fbank.py, which are not ported yet (ROADMAP.md, "
-        "queue 1, item 13)")
 
 
 class TTS:
@@ -49,26 +46,31 @@ class TTS:
                  tokenizer_path: Optional[str] = None,
                  config: str = "configs/default.yaml",
                  campplus: Optional[str] = None, device=None):
-        if campplus is not None:
-            raise _no_campplus(campplus)
         if pipeline is None:
             d = Path(model_dir)
             cfg_file = d / "config.yaml"
             cfg = cfg_lib.load_tts_config(cfg_file if cfg_file.exists()
                                           else config)
-            if (d / "campplus.onnx").exists() \
-                    and not cfg.flow.use_speaker_encoder:
-                raise _no_campplus(d / "campplus.onnx")
             pipeline = TTSPipeline.from_flax(
                 cfg, *(load_params(d / f"{n}.npz")
                        for n in ("llm", "flow", "codec", "s3")),
                 device=device)
+            if campplus is None and (d / "campplus.onnx").exists():
+                campplus = str(d / "campplus.onnx")
         self.pipeline = pipeline
         self.cfg = pipeline.cfg
         self.sample_rate = self.cfg.sample_rate
         self.frontend = Frontend(tokenizer_path)
         self.spk2info: dict[str, dict] = {}
         self._stream_sess: Optional[StreamingSession] = None
+        self._campplus = None if campplus is None else load_campplus(
+            campplus, device=pipeline.device)
+
+    def xvector(self, prompt_speech_16k: np.ndarray) -> np.ndarray:
+        """(T,) 16 kHz audio -> (1, 192) CAM++ x-vector."""
+        return xvector(self._campplus, torch.as_tensor(
+            np.asarray(prompt_speech_16k, np.float32),
+            device=self.pipeline.device)).cpu().numpy()
 
     # -- the speaker cache -----------------------------------------------------
     def add_zero_shot_spk(self, prompt_text: str,
@@ -101,7 +103,17 @@ class TTS:
         (1, 192) speaker conditioning, prompt text tokens."""
         p = self.pipeline
         audio24 = linear_resample(prompt_speech_16k, 16000, 24000)
-        lm_spk, flow_emb = p.speaker_embedding(p.extract_prompt_mel(audio24))
+        if self._campplus is not None \
+                and not self.cfg.flow.use_speaker_encoder:
+            xv = self.xvector(prompt_speech_16k)
+            flow_emb = torch.as_tensor(
+                xv / max(float(np.linalg.norm(xv)), 1e-12), device=p.device)
+            with torch.no_grad():
+                lm_spk = p.lm.project_xvector(flow_emb.to(
+                    next(p.lm.parameters()).dtype))
+        else:
+            lm_spk, flow_emb = p.speaker_embedding(
+                p.extract_prompt_mel(audio24))
         return {"prompt_tokens": p.extract_prompt_tokens(
                     prompt_speech_16k.astype(np.float32)),
                 "prompt_feat": p.extract_prompt_feat(audio24),

@@ -1,11 +1,12 @@
 """Text frontend: normalization, sentence splitting, tokenization.
 
-Port of minimax_speech_tpu/infer/frontend.py on the hermetic byte
-tokenizer: `normalize_text`, `split_paragraph` and `Frontend` (normalize
--> split -> tokenize), with the port's copy of the text normalizer
-(infer/textnorm.py). The Qwen and Whisper tiktoken tokenizers need
-tokenizer files that are not in the repo and are not ported yet
-(ROADMAP.md, queue 1): a tokenizer path raises.
+Port of minimax_speech_tpu/infer/frontend.py: `normalize_text`,
+`split_paragraph` and `Frontend` (normalize -> split -> tokenize), with
+the port's copy of the text normalizer (infer/textnorm.py), on the
+hermetic byte tokenizer or the Whisper tiktoken tokenizer of a
+`.tiktoken` asset (infer/whisper_tokenizer.py). The Qwen tokenizer reads
+a Hugging Face vocabulary directory, which the repo does not hold: such
+a path raises.
 """
 from __future__ import annotations
 
@@ -82,12 +83,20 @@ class ByteTokenizer:
         return bytes(i - 1 for i in ids if i > 0).decode("utf-8", "ignore")
 
 
-def get_tokenizer(token_path: Optional[str] = None) -> ByteTokenizer:
-    """None -> the byte tokenizer; a tokenizer path raises."""
+def get_tokenizer(token_path: Optional[str] = None):
+    """None -> the byte tokenizer; a .tiktoken asset ->
+    WhisperTikTokenizer; any other path (a Hugging Face Qwen directory)
+    raises."""
+    if token_path and str(token_path).endswith(".tiktoken"):
+        from minimax_speech_torch.infer.whisper_tokenizer import \
+            WhisperTikTokenizer
+        return WhisperTikTokenizer(token_path)
     if token_path:
         raise NotImplementedError(
-            f"tokenizer {token_path!r}: QwenTokenizer and WhisperTikTokenizer "
-            "are not ported yet (ROADMAP.md, queue 1)")
+            f"tokenizer {token_path!r}: the Qwen tokenizer is not ported: it "
+            "needs a Hugging Face vocabulary directory, which the repo does "
+            "not hold (ROADMAP.md: not queued); a .tiktoken asset, or no "
+            "path for the byte tokenizer")
     return ByteTokenizer()
 
 

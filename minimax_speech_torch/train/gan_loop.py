@@ -20,7 +20,6 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Callable, Iterable
 
-import numpy as np
 import torch
 
 from minimax_speech_torch.data.pipeline import prefetch
@@ -49,15 +48,15 @@ class GanRun:
               prefetch_depth: int = 2,
               after_step: Callable | None = None) -> int:
         """Run iterations from `start` to num_iters over `batches` (dicts
-        of numpy arrays); draws(batch, generator) gives the iteration's
-        draws; after_step(step, batch), if given, runs after each
-        iteration. Returns the iterations done."""
+        of numpy arrays or tensors); draws(batch, generator) gives the
+        iteration's draws; after_step(step, batch), if given, runs after
+        each iteration. Returns the iterations done."""
         logger = MetricsLogger(self.model_dir, name=name,
                                log_interval=log_interval)
         step = self.start
         if step < num_iters:
             for batch in prefetch(batches, prefetch_depth):
-                batch = {k: torch.as_tensor(np.asarray(v)).to(device)
+                batch = {k: torch.as_tensor(v).to(device)
                          for k, v in batch.items()}
                 gen = torch.Generator(device=device).manual_seed(step)
                 dr = draws(batch, gen)

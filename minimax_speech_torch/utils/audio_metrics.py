@@ -4,23 +4,22 @@ host.
 Port of the numpy metrics of minimax_speech_tpu/utils/audio_metrics.py:
 STOI (Taal et al. 2011, pystoi's constants), SI-SDR, waveform L1 and the
 multi-scale mel distance. STOI resamples to 10 kHz with the polyphase
-Kaiser-windowed sinc of the JAX package's utils/audio_signal.resample,
-here in float64 numpy. That filter's cutoff is rolloff / (2 max(up,
-down)) input cycles per sample, `up` times below julius's: from 24 kHz
-it passes 0-945 Hz (a 1 kHz tone comes out at 0.12, 1.5 kHz at 3e-8), so
-STOI's upper six third-octave bands read the filter's leakage, 46-80 dB
-down, where float32 rounding moves them; the port keeps the JAX
-package's filter, so that both give the same metric. PESQ and ViSQOL,
-which wrap external packages, are not ported.
+Kaiser-windowed sinc of utils/audio_signal.resample (the JAX package's
+filter), here in float64 on the host. That filter's cutoff is rolloff /
+(2 max(up, down)) input cycles per sample, `up` times below julius's:
+from 24 kHz it passes 0-945 Hz (a 1 kHz tone comes out at 0.12, 1.5 kHz
+at 3e-8), so STOI's upper six third-octave bands read the filter's
+leakage, 46-80 dB down, where float32 rounding moves them; the port
+keeps the JAX package's filter, so that both give the same metric. PESQ
+and ViSQOL, which wrap external packages, are not ported.
 """
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from minimax_speech_torch.utils import audio_losses
+from minimax_speech_torch.utils.audio_signal import resample
 
 FS = 10000          # STOI's internal sample rate
 N_FRAME = 256       # frame length (25.6 ms)
@@ -32,34 +31,14 @@ BETA = -15.0        # lower SDR clip (dB)
 DYN_RANGE = 40.0    # silent-frame removal range (dB)
 
 
-def _kaiser_sinc_kernel(orig_sr: int, new_sr: int, zeros: int = 24,
-                        rolloff: float = 0.945):
-    """(up, taps) windowed-sinc polyphase filters, up, down, half width
-    (the JAX package's cutoff: see the module docstring)."""
-    g = math.gcd(orig_sr, new_sr)
-    up, down = new_sr // g, orig_sr // g
-    cutoff = rolloff * 0.5 / max(up, down)
-    width = int(math.ceil(zeros / cutoff / 2))
-    t = (np.arange(-width, width + 1)[None, :]
-         - np.arange(up)[:, None] / up)
-    sinc = np.sinc(2 * cutoff * t) * 2 * cutoff
-    beta = 14.769656459379492  # Kaiser beta of a 180 dB sidelobe
-    x = t / width
-    win = np.i0(beta * np.sqrt(np.clip(1 - x ** 2, 0, 1))) / np.i0(beta)
-    return (sinc * win).astype(np.float32), up, down, width
-
-
 def _resample(x: np.ndarray, sr: int, new_sr: int) -> np.ndarray:
-    """(T,) -> round(T * new_sr / sr) samples, float64: each phase's
-    filter run over the zero-padded input, the phases interleaved, every
-    down-th kept."""
+    """(T,) -> round(T * new_sr / sr) samples, float64, through
+    utils/audio_signal.resample."""
     if sr == new_sr:
         return x
-    kernels, up, down, width = _kaiser_sinc_kernel(sr, new_sr)
-    xp = np.pad(np.asarray(x, np.float64), (width, width + down))
-    y = np.stack([np.correlate(xp, k.astype(np.float64), "valid")
-                  for k in kernels], axis=1).reshape(-1)  # j = i * up + p
-    return y[::down][: int(round(len(x) * new_sr / sr))]
+    n = int(round(len(x) * new_sr / sr))
+    return resample(torch.as_tensor(np.asarray(x, np.float64)), sr,
+                    new_sr).numpy()[:n]
 
 
 def _thirdoct(fs: int, nfft: int, num_bands: int, min_freq: float):

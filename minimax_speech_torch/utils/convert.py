@@ -10,8 +10,10 @@ Port of minimax_speech_tpu/utils/convert.py; the S3 tokenizer's, the
 DAC-VAE's and Qwen2's converters live beside their models
 (params_from_torch_state, params_from_hf_state). Numpy in and out: the
 state dicts are {name: numpy array}, as cli/convert_checkpoint.py loads
-them with torch.load. The CAM++, Matcha text-encoder and legacy-flow
-converters wait for their models (ROADMAP.md, queue 1, item 6).
+them with torch.load; `campplus_params` also takes a campplus.onnx's
+initializers (utils/onnx_reader.py). The Matcha text-encoder and
+legacy-flow converters wait for their models (ROADMAP.md, queue 1,
+items 3 and 4).
 """
 from __future__ import annotations
 
@@ -327,4 +329,85 @@ def hift_params(state: dict, cfg) -> dict:
     fp["classifier"] = {"kernel": _dw(state["f0_predictor.classifier.weight"]),
                         "bias": state["f0_predictor.classifier.bias"]}
     p["f0_predictor"] = fp
+    return {"params": p}
+
+
+# ---------------------------------------------------------------------------
+# campplus.onnx / campplus torch checkpoint -> models/campplus.py CAMPPlus
+# ---------------------------------------------------------------------------
+
+def _bn(state: dict, prefix: str) -> dict:
+    """BatchNorm (torch) -> BNEval params; affine=False BNs (the
+    'batchnorm_' config in D-TDNN) get identity gamma/beta."""
+    mean = state[prefix + "running_mean"]
+    var = state[prefix + "running_var"]
+    gamma = state.get(prefix + "weight", np.ones_like(mean))
+    beta = state.get(prefix + "bias", np.zeros_like(mean))
+    return {"gamma": gamma, "beta": beta, "mean": mean, "var": var}
+
+
+def _conv2(w):  # torch Conv2d (out, in, kh, kw) -> flax (kh, kw, in, out)
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def campplus_params(state: dict,
+                    block_layers=(12, 24, 16)) -> dict:
+    """CAM++ x-vector weights -> the flax tree of models/campplus.py
+    CAMPPlus (both packages load it). `state` is a torch state dict (the
+    3D-Speaker CAM++ release) or a campplus.onnx's initializers read by
+    utils/onnx_reader.py."""
+    state = strip_prefix(state)
+    p: dict = {}
+
+    def resblock(prefix):
+        out = {"conv1": {"kernel": _conv2(state[prefix + "conv1.weight"])},
+               "bn1": _bn(state, prefix + "bn1."),
+               "conv2": {"kernel": _conv2(state[prefix + "conv2.weight"])},
+               "bn2": _bn(state, prefix + "bn2.")}
+        if prefix + "shortcut.0.weight" in state:
+            out["shortcut_conv"] = {
+                "kernel": _conv2(state[prefix + "shortcut.0.weight"])}
+            out["shortcut_bn"] = _bn(state, prefix + "shortcut.1.")
+        return out
+
+    head = {"conv1": {"kernel": _conv2(state["head.conv1.weight"])},
+            "bn1": _bn(state, "head.bn1."),
+            "conv2": {"kernel": _conv2(state["head.conv2.weight"])},
+            "bn2": _bn(state, "head.bn2.")}
+    for li in (1, 2):
+        for bi in (0, 1):
+            head[f"layer{li}_{bi}"] = resblock(f"head.layer{li}.{bi}.")
+    p["head"] = head
+
+    p["tdnn_linear"] = {"kernel": _conv(state["xvector.tdnn.linear.weight"])}
+    p["tdnn_bn"] = _bn(state, "xvector.tdnn.nonlinear.batchnorm.")
+
+    for b, n_layers in enumerate(block_layers, start=1):
+        for l in range(1, n_layers + 1):
+            pref = f"xvector.block{b}.tdnnd{l}."
+            cam = {
+                "linear_local": {"kernel": _conv(
+                    state[pref + "cam_layer.linear_local.weight"])},
+                "linear1": {"kernel": _conv(
+                    state[pref + "cam_layer.linear1.weight"]),
+                    "bias": state[pref + "cam_layer.linear1.bias"]},
+                "linear2": {"kernel": _conv(
+                    state[pref + "cam_layer.linear2.weight"]),
+                    "bias": state[pref + "cam_layer.linear2.bias"]},
+            }
+            p[f"block{b}_layer{l}"] = {
+                "nonlinear1": _bn(state, pref + "nonlinear1.batchnorm."),
+                "linear1": {"kernel": _conv(state[pref + "linear1.weight"])},
+                "nonlinear2": _bn(state, pref + "nonlinear2.batchnorm."),
+                "cam_layer": cam,
+            }
+        p[f"transit{b}_bn"] = _bn(
+            state, f"xvector.transit{b}.nonlinear.batchnorm.")
+        p[f"transit{b}_linear"] = {"kernel": _conv(
+            state[f"xvector.transit{b}.linear.weight"])}
+
+    p["out_bn"] = _bn(state, "xvector.out_nonlinear.batchnorm.")
+    p["dense_linear"] = {
+        "kernel": state["xvector.dense.linear.weight"][:, :, 0].T}
+    p["dense_bn"] = _bn(state, "xvector.dense.nonlinear.batchnorm.")
     return {"params": p}

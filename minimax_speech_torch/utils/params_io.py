@@ -10,6 +10,7 @@ module path plus a leaf name fixed by the module type:
 
   Linear     weight (out, in)     <- Dense kernel (in, out), transposed
   Conv1d     weight (out, in/g, k) <- Conv kernel (k, in/g, out)
+  Conv2d     weight (out, in, kh, kw) <- Conv kernel (kh, kw, in, out)
   LayerNorm, GroupNorm  weight    <- scale
   Embedding  weight               <- embedding
   QuantDense kernel_q (out, in) int8 <- kernel_q (in, out) int8, transposed
@@ -70,6 +71,9 @@ def _leaf(mod: nn.Module, pname: str):
     if isinstance(mod, nn.Conv1d) and pname == "weight":
         return ("kernel", lambda a: a.transpose(2, 1, 0),
                 lambda a: a.transpose(2, 1, 0))
+    if isinstance(mod, nn.Conv2d) and pname == "weight":
+        return ("kernel", lambda a: a.transpose(3, 2, 0, 1),
+                lambda a: a.transpose(2, 3, 1, 0))
     if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)) and pname == "weight":
         return "scale", lambda a: a, lambda a: a
     if isinstance(mod, nn.Embedding) and pname == "weight":
@@ -177,7 +181,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     at one and zero). Modules with parameters of their own define
     `init_weights(generator)`. Deterministic for a given generator."""
     for mod in module.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv1d)):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             w = mod.weight
             fan_in = math.prod(w.shape[1:])
             w.normal_(0.0, fan_in ** -0.5, generator=generator)

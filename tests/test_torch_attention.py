@@ -18,6 +18,9 @@ import torch
 
 from minimax_speech_torch.kernels import flash_attention as t_fa
 from minimax_speech_tpu.kernels import flash_attention as j_fa
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 MODES = {"full": {}, "causal": dict(causal=True), "chunk": dict(chunk=50),
          "chunk_left": dict(chunk=50, left_chunks=2)}

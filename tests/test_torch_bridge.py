@@ -20,6 +20,9 @@ from minimax_speech_torch.utils import params_io as t_io
 from minimax_speech_tpu.models import llm as j_llm
 from minimax_speech_tpu.utils import params_io as j_io
 from tests.test_pipeline import tiny_cfg
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 def port_config(jax_cfg, port_type):

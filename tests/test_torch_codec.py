@@ -25,6 +25,9 @@ from minimax_speech_tpu.models import speaker_encoder as j_spk
 from minimax_speech_tpu.ops import mel as j_mel
 from tests.conftest import synthetic_audio
 from tests.test_torch_bridge import jitter, tiny_port_cfg
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,9 @@ from minimax_speech_tpu.models import discriminators as j_disc
 from minimax_speech_tpu.train import gan_steps as j_gan
 from minimax_speech_tpu.train import schedule as j_sched
 from minimax_speech_tpu.train import steps as j_steps
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 DAC_KW = dict(encoder_dim=4, encoder_rates=(2, 5), latent_dim=6,
               decoder_dim=16, decoder_rates=(5, 2))

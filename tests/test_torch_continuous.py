@@ -31,6 +31,9 @@ from minimax_speech_tpu.infer.bistream import BistreamDecoder as JBistream
 from minimax_speech_tpu.models import llm as j_llm
 from tests.test_torch_bridge import jitter, port_config, tiny_port_cfg
 from tests.test_torch_serving import make_requests, trees  # noqa: F401
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 MAX_TOKENS = 24
 BURST_FOLD = 0x62757273  # folded into JAX's batcher key after each burst

@@ -37,6 +37,9 @@ from minimax_speech_tpu.utils import params_io as j_io
 import chip_smoke
 from tests.test_convert import FLOW_CFG, HIFT_CFG, LM_CFG, arr, speaker_sd
 from tests.test_torch_bridge import port_config
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 DAC_CFG = j_dac.DACVAEConfig(encoder_dim=4, encoder_rates=(2, 3),
                              latent_dim=8, decoder_dim=16,

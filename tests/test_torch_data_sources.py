@@ -19,6 +19,9 @@ from minimax_speech_tpu.data import native_loader as j_nl
 from minimax_speech_tpu.data import pipeline as j_dp
 from tests.conftest import synthetic_audio
 from tests.test_mp3 import write_mp3
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 def _needs_mpg123():

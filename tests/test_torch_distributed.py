@@ -50,6 +50,9 @@ from tests import torch_gang
 from tests.test_torch_bridge import jitter, tiny_port_cfg
 from tests.test_torch_flow_train import jax_flow_draws
 from tests.test_train_cli import make_corpus
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 REPO = Path(__file__).resolve().parent.parent
 LR = 1e-3

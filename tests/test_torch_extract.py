@@ -45,6 +45,9 @@ from minimax_speech_tpu.utils import params_io as j_io
 from tests.conftest import synthetic_audio
 from tests.test_cli import write_wav
 from tests.test_torch_bridge import jitter
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 TINY_S3 = dict(n_state=32, n_head=4, n_layer=1)
 TINY_YAML = str(Path(__file__).resolve().parents[1] / "configs" / "tiny.yaml")
@@ -242,7 +245,8 @@ def test_extract_dac_latents_and_stats_match(tmp_path, rng, tiny_dac,
 def test_extract_embedding_matches(tmp_path, rng):
     """The default speaker encoder from the speaker_encoder subtree of an
     LM-style .npz, over wavs at 24 and 16 kHz: embeddings within 1e-5;
-    --campplus raises NotImplementedError."""
+    then --campplus (a random CAM++ written as campplus.onnx) over the
+    same wavs against JAX's CLI: x-vectors within 1e-5."""
     src = _corpus(tmp_path / "src", rng, 24000, (1.2, 0.8))
     write_wav(src / "c2.wav", synthetic_audio(rng, 0.9, 16000), 16000)
     enc = j_spk.LearnableSpeakerEncoder(j_spk.SpeakerEncoderConfig())
@@ -259,8 +263,23 @@ def test_extract_embedding_matches(tmp_path, rng):
         assert ours.shape == ref.shape == (192,)
         np.testing.assert_allclose(ours, ref, rtol=0,
                                    atol=1e-5 * np.abs(ref).max())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_emb.main(["--dir", str(pdir), "--campplus", "cp.onnx"])
+    import chip_smoke
+    from tests.test_campplus import TorchCAMPPlus
+
+    torch.manual_seed(1)
+    cp = chip_smoke.write_onnx(tmp_path / "campplus.onnx", {
+        k: v.numpy() for k, v in TorchCAMPPlus(
+            80, 192, 32, 4, 128, 32, (12, 24, 16), (1, 2, 2)).state_dict()
+        .items()})
+    j_emb.main(["--dir", str(jdir), "--campplus", str(cp)])
+    t_emb.main(["--dir", str(pdir), "--campplus", str(cp), "--device",
+                "cpu"])
+    for i in range(3):
+        ours, ref = np.load(pdir / f"c{i}_spk.npy"), \
+            np.load(jdir / f"c{i}_spk.npy")
+        assert ours.shape == ref.shape == (192,)
+        np.testing.assert_allclose(ours, ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
 
 
 def test_eval_dac_metrics_match(tmp_path, rng, tiny_dac):

@@ -21,6 +21,9 @@ from minimax_speech_tpu.models import cfm as j_cfm
 from minimax_speech_tpu.models import conformer as j_cf
 from minimax_speech_tpu.models import flow as j_flow
 from tests.test_torch_bridge import jitter, tiny_port_cfg
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 TOK_LENS = np.array([9, 6], np.int32)
 

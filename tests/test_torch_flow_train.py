@@ -33,6 +33,9 @@ from minimax_speech_tpu.models import flow as j_flow
 from minimax_speech_tpu.train import schedule as j_sched
 from minimax_speech_tpu.train import steps as j_steps
 from tests.test_torch_bridge import jitter, tiny_port_cfg
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 TOK_LENS = np.array([9, 6, 7], np.int32)
 REF_LENS = np.array([32, 20, 27], np.int32)

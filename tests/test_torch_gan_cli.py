@@ -18,6 +18,9 @@ from minimax_speech_torch.utils import params_io as t_io
 from minimax_speech_tpu.models import dac_vae as j_dac
 from minimax_speech_tpu.utils import params_io as j_io
 from tests.test_torch_hift_train import _gan_corpus
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 def _metrics(path):
@@ -28,8 +31,12 @@ def test_train_dac_cli_resume_and_export(tmp_path, rng):
     """2 iterations at the tiny dac geometry, a decode sample; a second
     call to 3 resumes at step 2 (both checkpoints) and exports, and JAX's
     load_params and DACVAE read the export: its decode equals the
-    port's within 1e-5. Without --device the CLI raises (no GPU here);
-    a transform other than Identity raises NotImplementedError."""
+    port's within 1e-5. Without --device the CLI raises (no GPU here).
+    Then 2 iterations with a chain of transforms at --augment_prob 0.5:
+    each batch the step trains on is JAX's CLI's transform of the same
+    crops on the same key (PRNGKey(10_000_019 + iteration)), within 2e-5
+    of its largest sample (tests/test_torch_audiotools.py's limit), the
+    port's apply given JAX's draws; the port's own draws run too."""
     _gan_corpus(tmp_path, rng)
     exp = tmp_path / "exp"
     args = ["--train_folders", str(tmp_path), "--model_dir", str(exp),
@@ -38,8 +45,7 @@ def test_train_dac_cli_resume_and_export(tmp_path, rng):
             "1", "--prefetch", "0"]
     with pytest.raises(RuntimeError, match="no CUDA"):
         t_train_dac.main(args + ["--num_iters", "1"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_train_dac.main(args + ["--augment", "BackgroundNoise"])
+    _chained_run(tmp_path, args)
     t_train_dac.main(args + ["--num_iters", "2", "--device", "cpu"])
     assert (exp / "sample_1.npy").exists()
     assert sorted(p.name for p in (exp / "ckpt_g").iterdir()) == ["2"]
@@ -62,6 +68,45 @@ def test_train_dac_cli_resume_and_export(tmp_path, rng):
     with torch.no_grad():
         ours = port.decode(torch.as_tensor(z)).numpy()
     np.testing.assert_allclose(ours, ref, atol=1e-5)
+
+
+def _chained_run(tmp_path, args):
+    import jax
+
+    from minimax_speech_torch.utils import audio_transforms as t_at
+    from minimax_speech_tpu.utils import audio_signal as j_as
+    from minimax_speech_tpu.utils import audio_transforms as j_at
+    from tests.test_torch_audiotools import jax_draws
+
+    seen, build = [], t_at.build_transform
+
+    def replay(**kw):
+        ours, ref = build(**kw), j_at.build_transform(**kw)
+
+        def call(gen, sig):
+            key = jax.random.PRNGKey(gen.initial_seed())
+            jsig = j_as.AudioSignal(sig.audio_data.numpy(), sig.sample_rate)
+            own = ours(gen, sig).audio_data
+            assert own.shape == sig.audio_data.shape
+            assert torch.isfinite(own).all()
+            out = ours.apply(jax_draws(ref, key, jsig), sig)
+            seen.append((gen.initial_seed(), out.audio_data.numpy(),
+                         np.asarray(ref(key, jsig).audio_data)))
+            return out
+        return call
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(t_at, "build_transform", replay)
+        t_train_dac.main(args[:3] + [str(tmp_path / "chain")] + args[4:] + [
+            "--num_iters", "2", "--device", "cpu", "--preprocess",
+            "VolumeNorm", "--augment", "LowPass", "Equalizer",
+            "BackgroundNoise", "--postprocess", "RescaleAudio",
+            "--augment_prob", "0.5"])
+    assert [s for s, _, _ in seen] == [t_train_dac.TRANSFORM_SEED + i
+                                       for i in range(2)]
+    for _, ours, ref in seen:
+        np.testing.assert_allclose(ours, ref, rtol=0,
+                                   atol=2e-5 * np.abs(ref).max())
 
 
 def test_train_hift_cli_list_and_folders(tmp_path, rng):

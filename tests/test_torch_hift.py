@@ -44,6 +44,9 @@ from minimax_speech_tpu.models import hifigan as j_h
 from minimax_speech_tpu.ops import mel as j_mel
 from chip_smoke import DECODE_GAIN, phase_tol
 from tests.test_torch_bridge import jitter, port_config
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 # decode on a shared source: float32 sums in other orders through the
 # convolutions and the iSTFT, on audio in [-0.99, 0.99]

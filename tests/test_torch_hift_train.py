@@ -35,6 +35,9 @@ from tests.test_torch_codec_train import (LR, assert_grads_close,
                                           assert_metrics_close,
                                           assert_update_close, capture,
                                           jax_update, torch_grads)
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 HIFT_CFG = j_h.HiFTConfig(in_channels=8, base_channels=16,
                           upsample_rates=(4, 3), upsample_kernel_sizes=(8, 5),

@@ -17,6 +17,9 @@ from minimax_speech_torch.utils import params_io as t_io
 from minimax_speech_tpu.models import llm as j_llm
 from minimax_speech_tpu.models import qwen2 as j_qwen2
 from tests.test_torch_bridge import jitter, tiny_port_cfg
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 @pytest.fixture(scope="module")

@@ -63,6 +63,9 @@ from tests.conftest import synthetic_audio
 from tests.test_torch_bridge import jitter
 from tests.test_torch_continuous import bistream_noise, continuous_noise
 from tests.test_torch_lm import jax_decode_noise
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 MAX_TOKENS = 24
 # Every utterance makes 3 speech tokens per text token. HiFT keeps

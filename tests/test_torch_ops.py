@@ -21,6 +21,9 @@ from minimax_speech_tpu.ops import mel as j_mel
 from minimax_speech_tpu.ops import rope as j_rope
 from minimax_speech_tpu.ops import sampling as j_sampling
 from tests.conftest import synthetic_audio
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 @pytest.mark.parametrize("chunk,left", [(0, -1), (3, -1), (3, 1), (4, 0)])

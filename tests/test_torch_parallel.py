@@ -47,6 +47,9 @@ from minimax_speech_tpu.models import flow as j_flow
 from minimax_speech_tpu.models import llm as j_llm
 from minimax_speech_tpu.parallel import mesh as j_mesh
 from minimax_speech_tpu.train import schedule as j_sched
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 REPO = Path(__file__).resolve().parent.parent
 MESHES = [(2, 2), (4, 2), (2, 4), (1, 8)]

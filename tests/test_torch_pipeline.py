@@ -27,6 +27,9 @@ from minimax_speech_tpu.utils import params_io as j_io
 from tests.conftest import synthetic_audio
 from tests.test_torch_bridge import jitter, tiny_port_cfg
 from tests.test_torch_lm import jax_decode_noise
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -151,7 +154,18 @@ def test_chip_smoke_imports_no_jax():
         "minimax_speech_torch.cli.extract_embedding, "
         "minimax_speech_torch.cli.eval_dac, "
         "minimax_speech_torch.train.gan_loop, "
-        "minimax_speech_torch.data.audio_folder\n"
+        "minimax_speech_torch.data.audio_folder, "
+        "minimax_speech_torch.cli.codec, "
+        "minimax_speech_torch.cli.convert_checkpoint, "
+        "minimax_speech_torch.infer.codec_file, "
+        "minimax_speech_torch.infer.whisper_tokenizer, "
+        "minimax_speech_torch.infer.api, "
+        "minimax_speech_torch.models.campplus, "
+        "minimax_speech_torch.ops.kaldi_fbank, "
+        "minimax_speech_torch.utils.onnx_reader, "
+        "minimax_speech_torch.utils.convert, "
+        "minimax_speech_torch.utils.audio_signal, "
+        "minimax_speech_torch.utils.audio_transforms\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'minimax_speech_tpu')]\n"

@@ -23,6 +23,9 @@ from minimax_speech_tpu.models import qwen2 as j_qwen2
 from minimax_speech_tpu.utils import params_io as j_io
 from tests.test_torch_bridge import jitter, tiny_port_cfg
 from tests.test_torch_lm import jax_decode_noise
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 K_IN, N_OUT = 64, 48
 

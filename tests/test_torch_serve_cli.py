@@ -21,6 +21,9 @@ import pytest
 
 from minimax_speech_torch.cli import serve
 from tests.conftest import synthetic_audio
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 def _wav_b64(audio: np.ndarray, sr: int) -> str:

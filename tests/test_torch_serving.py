@@ -50,6 +50,9 @@ from tests.conftest import synthetic_audio
 from tests.test_stream_flow import _tiny_flow
 from tests.test_torch_bridge import jitter, port_config, tiny_port_cfg
 from tests.test_torch_lm import jax_decode_noise
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 MAX_TOKENS = 16
 
@@ -401,6 +404,27 @@ def test_tts_speaker_cache_round_trip_and_speed(tts, tmp_path):
     assert n1 > 0 and abs(n2 - n1 / 2) <= 2
 
 
-def test_campplus_raises(port_pipe):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_api.TTS(pipeline=port_pipe, campplus="campplus.onnx")
+def test_campplus_raises(port_pipe, tmp_path):
+    """A missing CAM++ file raises. With the flow's speaker encoder on,
+    CAM++ weights load but the conditioning stays the speaker encoder's,
+    as in JAX's TTS (the x-vector path is held against JAX in
+    tests/test_torch_campplus.py)."""
+    import chip_smoke
+    from tests.test_campplus import TorchCAMPPlus
+
+    with pytest.raises(FileNotFoundError):
+        t_api.TTS(pipeline=port_pipe, campplus=str(tmp_path / "no.onnx"))
+    torch.manual_seed(0)
+    state = {k: v.numpy() for k, v in TorchCAMPPlus(
+        80, 192, 32, 4, 128, 32, (12, 24, 16), (1, 2, 2)).state_dict()
+        .items()}
+    path = chip_smoke.write_onnx(tmp_path / "campplus.onnx", state)
+    prompt = synthetic_audio(np.random.default_rng(13), 0.5, 16000)
+    with_cp = t_api.TTS(pipeline=port_pipe, campplus=str(path))
+    assert with_cp.xvector(prompt).shape == (1, 192)
+    with_cp.add_zero_shot_spk("", prompt, "a")
+    plain = t_api.TTS(pipeline=port_pipe)
+    plain.add_zero_shot_spk("", prompt, "a")
+    for k in ("lm_spk", "flow_emb"):
+        np.testing.assert_array_equal(with_cp.spk2info["a"][k],
+                                      plain.spk2info["a"][k])

@@ -20,6 +20,9 @@ import torch
 
 from minimax_speech_torch.kernels import splash as t_sp
 from minimax_speech_tpu.kernels import splash as j_sp
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 MODES = {"causal": (1, -1), "full": (0, -1), "chunk": (50, -1),
          "chunk_left": (50, 2)}

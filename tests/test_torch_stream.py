@@ -37,6 +37,9 @@ from minimax_speech_tpu.ops import masks as j_masks
 from tests.conftest import synthetic_audio
 from tests.test_stream_flow import ENC_CFG, HOP, LOOK, _tiny_flow
 from tests.test_torch_bridge import jitter, port_config, tiny_port_cfg
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 WINDOW = 6
 PLEN, N_GEN = 5, 11

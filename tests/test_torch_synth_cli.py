@@ -27,6 +27,9 @@ from minimax_speech_tpu.infer import textnorm as j_tn
 from tests.conftest import synthetic_audio
 from tests.test_torch_bridge import jitter, tiny_port_cfg
 from tests.test_torch_lm import jax_decode_noise
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 TINY = "configs/tiny.yaml"
 

@@ -26,6 +26,9 @@ import torch
 
 from minimax_speech_torch.kernels import flash_attention as fa
 from minimax_speech_torch.kernels import splash
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 # chip_smoke.py's fp32 limits, |err| <= atol + rtol * |plain|
 K1_TOL = (1e-5, 1e-5)

@@ -24,6 +24,9 @@ from minimax_speech_tpu.train import schedule as j_sched
 from minimax_speech_tpu.train import steps as j_steps
 from minimax_speech_tpu.utils import losses as j_losses
 from tests.test_torch_bridge import jitter, port_config, tiny_port_cfg
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])

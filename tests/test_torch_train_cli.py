@@ -24,6 +24,9 @@ from minimax_speech_torch.parallel import mesh as t_mesh
 from minimax_speech_tpu.data import pipeline as j_dp
 from minimax_speech_tpu.infer import frontend as j_fe
 from tests.test_train_cli import make_corpus
+from tests import torch_cpu
+
+torch_cpu.share_cores()
 
 
 def _chain(dp, tokenizer, lst, frames=300, model_kind="llm"):
