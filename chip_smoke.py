@@ -82,7 +82,8 @@ a line; any failure ends the run with a non-zero exit:
      and SDPA times and the bound (run after 15 and 16, whose shapes it
      reads);
  17. cli/serve.py as a subprocess on a free loopback port, once per
-     scheduler (window, continuous), at full width (W8A8 LM, 30 tokens):
+     scheduler (window, continuous), at full width (W8A8 LM at
+     PATH_LM_LAYERS of its 24 layers, 30 tokens):
      /healthz, a 3 s tone speaker registered, 3 concurrent /synthesize
      requests answered with 24 kHz mono int16 WAVs, bad payloads
      answered with 400; then warm_serving once in-process;
@@ -237,6 +238,28 @@ a line; any failure ends the run with a non-zero exit:
      every AudioSignal method the transforms use on phase 35's batch (64
      x 9120 samples) card vs CPU with the same draws; cli/train_dac.py
      for 2 iterations with that chain at --augment_prob 0.5; K1 = K2 = 0.
+ 42. Matcha-TTS synthesis: cli/matcha.py --random_init --hidden 192
+     --n_layers 6 (the published width, the default UNet and HiFi-GAN V1)
+     over 3 texts, unbatched and --batched: 40 K1 launches per synthesis
+     call (4 UNet blocks x 10 steps) and K2 0, RTF, the acoustic model's,
+     HiFi-GAN's and the denoiser's seconds, peak memory; the first text's
+     mel card vs CPU on the same weights and z (MEL_RTOL of its peak); K1
+     at (3, 4, 1000, 64) and (1, 4, 1000, 64) with the calls' frame
+     lengths against its plain version, timed beside SDPA and the bound;
+ 43. Matcha training: cli/train_matcha.py at MatchaConfig() on 8 written
+     wav/txt pairs, 3 steps of batch 8, K2 4 + 4 per step and K1 0
+     asserted; the first step's losses and every leaf's gradient card vs
+     CPU on the same batch and draws (the MAS path identical); the
+     step's time and MAS's beside it; K2 at (8, 4, mel bucket, 64)
+     against its plain version and timed;
+ 44. the legacy CosyVoice1 flow at LegacyFlowConfig(): inference with a
+     1 s prompt and 5 s of new tokens (K1 640 launches: 64 UNet blocks x
+     10 CFG steps; timed), a 2-step call card vs CPU (MEL_RTOL of the
+     peak); one loss backward (K2 64 + 64, the loss and every leaf's
+     gradient card vs CPU); K1 at (2, 8, T, 64) and (2, 8, ceil(T/2), 64)
+     and K2 at the loss's shape against their plain versions and timed;
+     then the legacy LM at LegacyLMConfig(): a loss forward and backward
+     on 4 plans, card vs CPU.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -1365,7 +1388,9 @@ def free_port() -> int:
 
 def serve_cli_phase(device="cuda", config="configs/default.yaml",
                     extra=("--override", "model.max_speech_tokens=30",
-                           "--override", "model.lm.qwen.quantized=true")):
+                           "--override", "model.lm.qwen.quantized=true",
+                           "--override",
+                           f"model.lm.qwen.n_layers={PATH_LM_LAYERS}")):
     """Phase 17: cli/serve.py as a subprocess on 127.0.0.1, once per
     scheduler, both started together: /healthz, a 3 s tone speaker
     registered, 3 concurrent /synthesize requests each answered with a
@@ -4718,6 +4743,494 @@ def transforms_phase(card: str, device="cuda", batch: int = DAC_BATCH,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Matcha-TTS and the legacy CosyVoice1 flow and LM: phases 42-44
+MATCHA_TEXTS = ["Hello there, this is a test of the Matcha voice.",
+                "The quick brown fox jumps over the lazy dog.",
+                "One more sentence, to fill the batch."]
+MEL_RTOL = 1e-4     # of the mel's peak, card vs CPU (Matcha and legacy)
+MATCHA_TRAIN_SEED = 43
+
+
+def matcha_phase(card: str, device="cuda", hidden: int = 192,
+                 n_layers: int = 6, max_frames: int = 1000,
+                 steps: int = 10, texts=MATCHA_TEXTS) -> dict:
+    """Phase 42: cli/matcha.py --random_init at `hidden` / `n_layers`
+    (the default UNet and HiFi-GAN V1) over `texts`, unbatched (one
+    synthesis call per text) and --batched (one call): K1 launches per
+    call (40 with 10 steps) and K2 0 asserted, RTF, the acoustic model's,
+    HiFi-GAN's and the denoiser's seconds, peak memory; then the first
+    text's mel against the same weights and z on the CPU within
+    MEL_RTOL of its peak, frame lengths equal; K1 at the synthesis shapes
+    (3 and 1, 4, max_frames, 64) with the calls' key lengths against its
+    plain version and timed. Returns the record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch.cli import matcha as matcha_cli
+    from minimax_speech_torch.models import matcha as m
+    from minimax_speech_torch.utils import params_io
+
+    on_card = device == "cuda"
+    cfg = m.MatchaConfig(hidden=hidden, n_layers=n_layers)
+    # one K1 launch per UNet block per Euler step
+    per_call = attn_calls_per_step(cfg.unet) * steps if on_card else 0
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="matcha_", dir=repo / "build"))
+    rec = {"launches": {}}
+    try:
+        (root / "texts.txt").write_text("\n".join(texts))
+        base = ["--file", str(root / "texts.txt"), "--random_init",
+                "--hidden", str(hidden), "--n_layers", str(n_layers),
+                "--max_frames", str(max_frames), "--steps", str(steps),
+                "--device", device]
+        for mode, extra, calls in (("unbatched", [], len(texts)),
+                                   ("batched", ["--batched"], 1)):
+            out = root / mode
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            summary = matcha_cli.main(base + extra
+                                      + ["--output_folder", str(out)])
+            k2, k1 = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+                else 0.0
+            mels = [np.load(out / f"utterance_{i:03d}_mel.npy")
+                    for i in range(len(texts))]
+            wavs = [out / f"utterance_{i:03d}.wav" for i in range(len(texts))]
+            log(f"[matcha] {card} | cli/matcha.py {mode}, hidden {hidden}, "
+                f"{n_layers} layers, {steps} steps, max_frames {max_frames}: "
+                f"{len(texts)} utterances of {[x.shape[0] for x in mels]} "
+                f"frames | rtf_mean {summary['rtf_mean']:.4f}, wall "
+                f"{summary['wall']} s, acoustic {summary['acoustic_s']} s, "
+                f"HiFi-GAN {summary['vocoder_s']} s, denoiser "
+                f"{summary['denoiser_s']} s | peak memory {peak:.2f} GiB | "
+                f"K1 {k1} launches ({k1 / calls:g} per call, expected "
+                f"{per_call}), K2 {k2}")
+            if k1 != per_call * calls or sum(k2.values()) \
+                    or summary["n"] != len(texts) \
+                    or not all(w.stat().st_size > 44 for w in wavs) \
+                    or not all(np.isfinite(x).all() and x.shape[0] > 0
+                               for x in mels):
+                raise AssertionError(f"the Matcha CLI ({mode}) failed")
+            rec["launches"][f"matcha_cli_{mode}"] = k1
+            rec[mode] = {**summary, "peak_gib": peak, "frames":
+                         [x.shape[0] for x in mels]}
+        # the first text on the CPU: the CLI's weights (seed 0) and z
+        # (the host generator at seed 0), its unbatched bucket
+        from minimax_speech_torch.infer.matcha_text import process_text
+        seq, _ = process_text(texts[0], ("english_cleaners2",))
+        tokens = np.zeros((1, matcha_cli._bucket(len(seq))), np.int64)
+        tokens[0, :len(seq)] = seq
+        z = torch.randn((1, max_frames, cfg.n_feats),
+                        generator=torch.Generator().manual_seed(0))
+        model = params_io.init_params(m.MatchaTTS(cfg),
+                                      torch.Generator().manual_seed(0))
+        ref, ref_len = m.matcha_synthesise(
+            model, tokens, [len(seq)], z=z, n_timesteps=steps,
+            length_scale=0.95, max_frames=max_frames, device="cpu")
+        n = int(ref_len[0])
+        ref = ref[0, :n].numpy()
+        got = np.load(root / "unbatched" / "utterance_000_mel.npy")
+        err = float(np.abs(got - ref).max()) if got.shape == ref.shape \
+            else float("inf")
+        log(f"[matcha] card vs CPU, utterance 0: frames {got.shape[0]} vs "
+            f"{n}, mel max |diff| {err:.2e} of peak {np.abs(ref).max():.3f} "
+            f"(tol {MEL_RTOL:g} of the peak)")
+        if err > MEL_RTOL * float(np.abs(ref).max()):
+            raise AssertionError("Matcha's mel differs card vs CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if on_card:  # K1 at the batched call's shape, then one text's
+        u = cfg.unet
+        kv = rec["batched"]["frames"]
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        rec["k1"] = {}
+        for name, lens in (("matcha_batched", kv), ("matcha_unbatched",
+                                                    kv[:1])):
+            shape = (len(lens), u.num_heads, max_frames,
+                     u.attention_head_dim)
+            k1_agreement([(shape, lens)], {"full": {}}, gen)
+            rec["k1"][name] = k1_timing(gen, shape, lens)
+    return rec
+
+
+def matcha_corpus(root: Path, n: int = 8, seed: int = MATCHA_TRAIN_SEED):
+    """n speech-like 22.05 kHz wavs of 1.5-3 s with a text each, and
+    their list file."""
+    from minimax_speech_torch.cli.synthesize import write_wav
+
+    rng = np.random.default_rng(seed)
+    words = "the of and to in is that it was for on are with as his".split()
+    paths = []
+    for i in range(n):
+        w = root / f"m{i}.wav"
+        write_wav(str(w), speechlike(rng, int(rng.uniform(1.5, 3.0)
+                                               * 22050), 22050), 22050)
+        w.with_suffix(".txt").write_text(" ".join(
+            rng.choice(words, int(rng.integers(6, 14)))))
+        paths.append(str(w))
+    lst = root / "data.list"
+    lst.write_text("\n".join(paths))
+    return lst
+
+
+def matcha_train_phase(card: str, device="cuda", n_utts: int = 8,
+                       epochs: int = 3) -> dict:
+    """Phase 43: cli/train_matcha.py at MatchaConfig() on a written corpus
+    of n_utts wav/txt pairs (one batch of n_utts a step) for `epochs`
+    steps, each launching K2 4 + 4 (one per UNet block) and K1 never; the
+    metrics rows finite. Then, on the same batch and draws, the first
+    step's three losses and every leaf's gradient card vs CPU (the MAS
+    path identical), the step's time and MAS's (maximum_path on the
+    step's logp shape, CUDA events) beside it, and K2 at the step's shape
+    (8, 4, mel bucket, 64) with its mel lengths against its plain
+    version and timed. Returns the record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch.cli import train_matcha as tm_cli
+    from minimax_speech_torch.models import cfm
+    from minimax_speech_torch.models import matcha as m
+    from minimax_speech_torch.ops import monotonic_align as ma
+    from minimax_speech_torch.utils import params_io
+
+    on_card = device == "cuda"
+    cfg = m.MatchaConfig()
+    per_step = attn_calls_per_step(cfg.unet) if on_card else 0
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="matcha_train_", dir=repo / "build"))
+    try:
+        lst = matcha_corpus(root, n_utts)
+        reset_counts()
+        t0 = time.perf_counter()
+        n_steps = tm_cli.main([
+            "--train_data", str(lst), "--model_dir", str(root / "exp"),
+            "--num_epochs", str(epochs), "--batch_size", str(n_utts),
+            "--log_interval", "1", "--cleaners", "english_cleaners2",
+            "--device", device])
+        cli_s = time.perf_counter() - t0
+        k2, k1 = read_counts()
+        rows = [json.loads(r) for r in (root / "exp" / "matcha_metrics.jsonl")
+                .read_text().splitlines()]
+        log(f"[matcha-train] {card} | cli/train_matcha.py, {n_utts} "
+            f"utterances, {n_steps} steps in {cli_s:.1f} s (corpus mels "
+            f"included): loss {[round(r['loss'], 4) for r in rows]} | K2 "
+            f"{k2}, K1 {k1} (expected {per_step} + {per_step} per step)")
+        if k2 != {"forward": per_step * n_steps,
+                  "backward": per_step * n_steps} or k1 \
+                or len(rows) != n_steps \
+                or not all(np.isfinite(r["loss"]) for r in rows):
+            raise AssertionError("the Matcha training CLI failed")
+        items = tm_cli.load_corpus(str(lst), ("english_cleaners2",))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the CLI's first batch, normalised as it normalises it
+    allm = np.concatenate([x for _, x in items])
+    mean, std = float(allm.mean()), float(allm.std())
+    tok_pad = tm_cli._bucket(max(len(t) for t, _ in items))
+    mel_pad = tm_cli._bucket(max(x.shape[0] for _, x in items))
+    tokens = np.zeros((n_utts, tok_pad), np.int64)
+    mels = np.zeros((n_utts, mel_pad, cfg.n_feats), np.float32)
+    for j, (t, x) in enumerate(items):
+        tokens[j, :len(t)] = t
+        mels[j, :x.shape[0]] = (x - mean) / std
+    lens = (torch.tensor([len(t) for t, _ in items]),
+            torch.tensor([x.shape[0] for _, x in items]))
+    draws = cfm.make_draws(cfg.cfm, n_utts, mel_pad, cfg.n_feats,
+                           torch.Generator().manual_seed(0))
+    runs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device), ("nudged", "cpu")):
+        model = params_io.init_params(m.MatchaTTS(cfg),
+                                      torch.Generator().manual_seed(0))
+        if label == "nudged":  # the text encoder's input moved by GAN_NUDGE
+            with torch.no_grad():
+                emb = model.encoder.emb.weight
+                emb.mul_(1 + GAN_NUDGE * torch.randn(
+                    emb.shape, generator=torch.Generator().manual_seed(1)))
+        model.to(dev)
+        batch = (torch.as_tensor(tokens, device=dev), lens[0].to(dev),
+                 torch.as_tensor(mels, device=dev), lens[1].to(dev))
+        d = dataclasses.replace(draws, t=draws.t.to(dev),
+                                cand=draws.cand.to(dev))
+        paths = []
+        orig = ma.maximum_path
+        ma.maximum_path = lambda v, k: paths.append(orig(v, k)) or paths[-1]
+        try:
+            reset_counts()
+            losses = model(*batch, d)
+            grads = torch.autograd.grad(sum(losses),
+                                        list(model.parameters()))
+            seen = read_counts()
+        finally:
+            ma.maximum_path = orig
+        runs[label] = ([float(x.detach()) for x in losses],
+                       {n: g.cpu() for (n, _), g in
+                        zip(model.named_parameters(), grads)},
+                       paths[0].cpu(), seen, model, batch, d)
+    l_dev, g_dev, p_dev, seen, model, batch, d = runs["card"]
+    l_cpu, g_cpu, p_cpu = runs["cpu"][:3]
+    loss_err = max(abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(l_dev, l_cpu))
+    # the decoder's leaves (the UNet, K2 under grad) are held; the text
+    # encoder's sit behind ReLUs (FFNs, prenet, duration predictor), where
+    # float32 rounding flips a gate and the gradient jumps, as a GAN_NUDGE
+    # move of the encoder's input shows on the CPU alone: printed, not
+    # held (phase 37's leaky ReLUs likewise)
+    grad_err = grad_errors(g_dev, g_cpu)
+    held = [n for n in g_cpu if n.startswith("decoder.")]
+    worst = max(held, key=grad_err.get)
+    enc = sorted((n for n in g_cpu if n not in held),
+                 key=lambda n: -grad_err[n])[:3]
+    moved = grad_errors(runs["nudged"][1], g_cpu)
+    same_path = bool(torch.equal(p_dev, p_cpu))
+    log(f"[matcha-train] first step card vs CPU, batch {n_utts} x "
+        f"{mel_pad} frames: (dur, prior, cfm) {[round(x, 5) for x in l_dev]}"
+        f" vs {[round(x, 5) for x in l_cpu]}, worst rel diff "
+        f"{loss_err:.2e} (tol {TRAIN_METRIC_RTOL:g}); MAS path identical "
+        f"{same_path}; the decoder's {len(held)} leaves: worst gradient "
+        f"{grad_err[worst]:.2e} of its largest ({worst}; tol "
+        f"{TRAIN_GRAD_RTOL:g}); the encoder's worst (not held) " + ", ".join(
+            f"{n} {grad_err[n]:.2e} (the CPU's own move under the nudge "
+            f"{moved[n]:.2e})" for n in enc) + f", the nudge's largest move "
+        f"{max(moved.values()):.2e}; K2 {seen[0]}, K1 {seen[1]}")
+    if loss_err > TRAIN_METRIC_RTOL or grad_err[worst] > TRAIN_GRAD_RTOL \
+            or not same_path or seen != ({"forward": per_step,
+                                          "backward": per_step}, 0):
+        raise AssertionError("Matcha's training step differs card vs CPU")
+    rec = {"launches": {"matcha_train_cli": sum(k2.values())},
+           "per_step": {"forward": per_step, "backward": per_step}}
+    if not on_card:
+        return rec
+
+    # the step's time and MAS's share of it, on the card
+    from minimax_speech_torch.train import schedule, steps
+    state = steps.make_train_state(model, schedule.make_optimizer(
+        lr=1e-4, warmup_steps=0))
+    step = steps.make_matcha_train_step(model, device=device)
+    tb = {"tokens": batch[0], "token_len": batch[1], "mels": batch[2],
+          "mel_len": batch[3]}
+    secs = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mt = step(state, tb, d)
+        float(mt["loss"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    step_ms = 1e3 * statistics.median(secs[1:])
+    logp = torch.randn((n_utts, tok_pad, mel_pad), device="cuda")
+    x_mask = torch.arange(tok_pad, device="cuda")[None] < batch[1][:, None]
+    y_mask = torch.arange(mel_pad, device="cuda")[None] < batch[3][:, None]
+    amask = x_mask[:, :, None] & y_mask[:, None, :]
+    mas_ms = cuda_ms(lambda: ma.maximum_path(logp, amask), iters=5)
+    log(f"[matcha-train] {card} | a train step at B {n_utts}, tokens "
+        f"{tok_pad}, {mel_pad} mel frames: median {step_ms:.1f} ms (steps "
+        f"{[round(1e3 * s, 1) for s in secs[1:]]}); MAS (maximum_path, "
+        f"{mel_pad} frames forward and back) {mas_ms:.1f} ms, "
+        f"{mas_ms / step_ms:.3f} of the step")
+    u = cfg.unet
+    kv = [int(n) for n in batch[3]]
+    shape = (n_utts, u.num_heads, mel_pad, u.attention_head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    k2_agreement([(shape, kv)], {"full": K2_MODES["full"]}, gen)
+    rec.update(step_ms=step_ms, mas_ms=mas_ms, k2=k2_timing(gen, shape, kv,
+                                                            "full"))
+    return rec
+
+
+LEGACY_TOKENS, LEGACY_PROMPT_TOKENS, LEGACY_PROMPT_FRAMES = 250, 50, 86
+
+
+def legacy_inputs(cfg, seed: int = 44):
+    """A prompt of LEGACY_PROMPT_TOKENS tokens and LEGACY_PROMPT_FRAMES
+    mel frames (1 s) and LEGACY_TOKENS new tokens (5 s), an x-vector and
+    the start noise."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, cfg.vocab_size, (1, LEGACY_TOKENS)),
+            [LEGACY_TOKENS],
+            rng.integers(0, cfg.vocab_size, (1, LEGACY_PROMPT_TOKENS)),
+            [LEGACY_PROMPT_TOKENS],
+            rng.standard_normal((1, LEGACY_PROMPT_FRAMES, cfg.output_size))
+            .astype(np.float32),
+            rng.standard_normal((1, cfg.spk_embed_dim)).astype(np.float32),
+            rng.standard_normal((1, 1024, cfg.output_size))
+            .astype(np.float32))
+
+
+def legacy_phase(card: str, device="cuda", cpu_steps: int = 2,
+                 loss_batch: int = 2, lm_batch_n: int = 4) -> dict:
+    """Phase 44: the legacy CosyVoice1 flow at LegacyFlowConfig() (random
+    weights, seed 0): legacy_flow_inference with a 1 s prompt and 5 s of
+    new tokens, 10 CFG steps, timed, K1 640 launches (64 blocks x 10) and
+    K2 0 asserted; the same call at cpu_steps steps card vs CPU (mel
+    within MEL_RTOL of its peak); one training loss backward on
+    loss_batch utterances (K2 64 + 64, K1 0), loss and every leaf's
+    gradient card vs CPU at phase 9's limits; K1 at the inference shapes
+    (2, 8, T, 64) and (2, 8, ceil(T/2), 64) and K2 at the loss's against
+    their plain versions and timed; then the legacy LM at
+    LegacyLMConfig(): one loss and accuracy forward and backward on
+    lm_batch_n plans, card vs CPU. Returns the record."""
+    import torch
+
+    from minimax_speech_torch.models import legacy_flow as lf
+    from minimax_speech_torch.models import legacy_lm as llm
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.utils import params_io
+
+    on_card = device == "cuda"
+    cfg = lf.LegacyFlowConfig()
+    blocks = attn_calls_per_step(cfg.unet)
+    inputs = legacy_inputs(cfg)
+    models = {dev: params_io.init_params(
+        lf.MaskedDiffWithXvec(cfg), torch.Generator().manual_seed(0)).to(dev)
+        for dev in ("cpu", device)}
+    model = models[device]
+    lf.legacy_flow_inference(model, *inputs, device=device)  # warm-up
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    mel = lf.legacy_flow_inference(model, *inputs, device=device)
+    sync(device)
+    infer_s = time.perf_counter() - t0
+    k2, k1 = read_counts()
+    expect = blocks * cfg.n_timesteps if on_card else 0
+    total = LEGACY_PROMPT_FRAMES + mel.shape[1]
+    log(f"[legacy] {card} | legacy_flow_inference at LegacyFlowConfig(), "
+        f"prompt {LEGACY_PROMPT_TOKENS} tokens / {LEGACY_PROMPT_FRAMES} "
+        f"frames, {LEGACY_TOKENS} new tokens -> {mel.shape[1]} mel frames "
+        f"(UNet T {total} and {(total + 1) // 2}, CFG batch 2), "
+        f"{cfg.n_timesteps} steps in {infer_s:.3f} s ({mel.shape[1] * 256 / 22050:.2f} "
+        f"audio-s) | K1 {k1} (expected {expect}), K2 {k2}")
+    if k1 != expect or sum(k2.values()) \
+            or not torch.isfinite(mel).all():
+        raise AssertionError("legacy flow inference failed")
+    mels = {dev: lf.legacy_flow_inference(models[dev], *inputs,
+                                          n_timesteps=cpu_steps,
+                                          device=dev).cpu()
+            for dev in ("cpu", device)}
+    err = float((mels[device] - mels["cpu"]).abs().max())
+    peak = float(mels["cpu"].abs().max())
+    log(f"[legacy] {cpu_steps}-step mel card vs CPU max |diff| {err:.2e} of "
+        f"peak {peak:.3f} (tol {MEL_RTOL:g} of the peak)")
+    if err > MEL_RTOL * peak:
+        raise AssertionError("the legacy mel differs card vs CPU")
+
+    # one training loss backward, card vs CPU
+    rng = np.random.default_rng(45)
+    t_tok = [200, 150][:loss_batch] + [120] * max(0, loss_batch - 2)
+    tf = [int(n / cfg.input_frame_rate * cfg.mel_rate) for n in t_tok]
+    batch = (torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (loss_batch, max(t_tok)))),
+             torch.tensor(t_tok),
+             torch.as_tensor(rng.standard_normal(
+                 (loss_batch, max(tf), cfg.output_size)), dtype=torch.float32),
+             torch.tensor(tf),
+             torch.as_tensor(rng.standard_normal(
+                 (loss_batch, cfg.spk_embed_dim)), dtype=torch.float32))
+    draws = lf.make_legacy_draws(cfg, loss_batch, max(tf),
+                                 torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in ("cpu", device):
+        d = lf.FlowDraws(draws.use_cond.to(dev), draws.frac.to(dev),
+                         dataclasses.replace(draws.cfm, **{
+                             f: getattr(draws.cfm, f).to(dev)
+                             for f in ("t", "cand", "keep", "perm")}))
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = models[dev](*(a.to(dev) for a in batch), d)
+        named = list(models[dev].named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        sync(dev)
+        runs[dev] = (float(loss.detach()), {n: g.cpu() for (n, _), g in
+                                   zip(named, grads)}, read_counts(),
+                     time.perf_counter() - t0)
+    symmetric = [n for n in runs["cpu"][1] if n.endswith("linear_k.bias")]
+    grad_err = grad_errors(runs[device][1], runs["cpu"][1], symmetric)
+    worst = max(grad_err, key=grad_err.get)
+    loss_err = abs(runs[device][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    want = ({"forward": blocks, "backward": blocks}, 0) if on_card \
+        else ({"forward": 0, "backward": 0}, 0)
+    log(f"[legacy] loss backward, batch {loss_batch} x {max(tf)} frames: "
+        f"loss {runs[device][0]:.5f} vs CPU {runs['cpu'][0]:.5f} (rel "
+        f"{loss_err:.2e}, tol {TRAIN_METRIC_RTOL:g}); worst leaf gradient "
+        f"{grad_err[worst]:.2e} of its largest ({worst}; tol "
+        f"{TRAIN_GRAD_RTOL:g}; {len(symmetric)} key biases zero by symmetry "
+        f"held to the model's largest); {runs[device][3]:.3f} s on {device}; "
+        f"(K2, K1) {runs[device][2]} (expected {want})")
+    if loss_err > TRAIN_METRIC_RTOL or grad_err[worst] > TRAIN_GRAD_RTOL \
+            or runs[device][2] != want:
+        raise AssertionError("the legacy flow loss differs card vs CPU")
+    rec = {"launches": {"legacy_flow_inference": k1,
+                        "legacy_flow_loss": sum(runs[device][2][0].values())}}
+    del models, model
+
+    # the legacy LM: loss, accuracy and backward, card vs CPU
+    lcfg = llm.LegacyLMConfig()
+    rng = np.random.default_rng(46)
+    texts = [rng.integers(0, lcfg.text_vocab_size, int(n))
+             for n in rng.integers(30, 60, lm_batch_n)]
+    speech = [rng.integers(0, lcfg.speech_token_size, int(n))
+              for n in rng.integers(150, 250, lm_batch_n)]
+    plan = llm_mod.build_lm_plan(texts, speech, eos=lcfg.speech_token_size,
+                                 fill=lcfg.speech_token_size + 2)
+    text_token = np.zeros((lm_batch_n, max(len(t) for t in texts)), np.int64)
+    for i, t in enumerate(texts):
+        text_token[i, :len(t)] = t
+    args = [torch.as_tensor(np.asarray(plan[k])) for k in
+            ("src_type", "tok_id", "target", "seq_len")] + [
+        torch.as_tensor(rng.standard_normal((lm_batch_n,
+                                             lcfg.llm_input_size)),
+                        dtype=torch.float32),
+        torch.as_tensor(text_token),
+        torch.tensor([len(t) for t in texts])]
+    out = {}
+    for dev in ("cpu", device):
+        lm = params_io.init_params(llm.LegacyTransformerLM(lcfg),
+                                   torch.Generator().manual_seed(0)).to(dev)
+        t0 = time.perf_counter()
+        loss, acc = lm(*(a.to(dev) for a in args))
+        grads = torch.autograd.grad(loss, list(lm.parameters()))
+        gn = float(torch.sqrt(sum(g.double().square().sum() for g in grads)))
+        out[dev] = (float(loss), float(acc), gn, time.perf_counter() - t0)
+        del lm
+    rel = max(abs(out[device][i] - out["cpu"][i]) / abs(out["cpu"][i])
+              for i in (0, 2))
+    # the accuracy counts argmax hits: one flip of a near-tie moves it
+    # by one target
+    n_targets = int((np.asarray(plan["target"]) >= 0).sum())
+    acc_flips = abs(out[device][1] - out["cpu"][1]) * n_targets
+    log(f"[legacy] LegacyTransformerLM at LegacyLMConfig(), {lm_batch_n} "
+        f"plans of length {int(np.asarray(plan['seq_len']).max())}: loss "
+        f"{out[device][0]:.5f}, acc {out[device][1]:.4f}, grad norm "
+        f"{out[device][2]:.4f} vs CPU {out['cpu'][0]:.5f}, "
+        f"{out['cpu'][1]:.4f}, {out['cpu'][2]:.4f} (loss and grad norm "
+        f"worst rel {rel:.2e}, tol {TRAIN_METRIC_RTOL:g}; accuracy "
+        f"{acc_flips:.0f} of {n_targets} targets apart, tol 1); forward "
+        f"and backward {out[device][3]:.3f} s on {device}")
+    if rel > TRAIN_METRIC_RTOL or acc_flips > 1.5:
+        raise AssertionError("the legacy LM differs card vs CPU")
+    if not on_card:
+        return rec
+    u = cfg.unet
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    rec["k1"] = {}
+    for t in (total, (total + 1) // 2):
+        shape = (2, u.num_heads, t, u.attention_head_dim)
+        k1_agreement([(shape, [t, t])], {"full": {}}, gen)
+        rec["k1"][f"legacy_T{t}"] = k1_timing(gen, shape, [t, t])
+    shape = (loss_batch, u.num_heads, max(tf), u.attention_head_dim)
+    k2_agreement([(shape, tf)], {"full": K2_MODES["full"]}, gen)
+    rec["k2"] = k2_timing(gen, shape, tf, "full")
+    return rec
+
+
 def tf32_off():
     """fp32 matmuls and convolutions without TF32, in this process (the
     main one, or a rank of phases 32-33's gang)."""
@@ -4969,7 +5482,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = phase_time(40, t0)
     transforms_phase(card)
-    phase_time(41, t0)
+    t0 = phase_time(41, t0)
+
+    # Matcha-TTS and the legacy CosyVoice1 flow and LM: phases 42-44
+    matcha = matcha_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(42, t0)
+    matcha_train = matcha_train_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(43, t0)
+    legacy = legacy_phase(card)
+    torch.cuda.empty_cache()
+    phase_time(44, t0)
     record["launches_by_path"]["xvector_zero_shot"] = xvector["launches"]
     k2["launches_by_path"]["xvector_zero_shot"] = 0
     for rec in (record, k2):  # asserted 0 in each phase
@@ -4994,6 +5518,21 @@ def main() -> int:
         launch_rec["per_step"]
     k2["dist_step_s_per_rank"] = {**dist_lm["step_s"],
                                   **dist_flow["step_s"]}
+    record["launches_by_path"].update(
+        **matcha["launches"], matcha_train_cli=0,
+        legacy_flow_inference=legacy["launches"]["legacy_flow_inference"],
+        legacy_flow_loss=0)
+    k2["launches_by_path"].update(
+        matcha_cli_unbatched=0, matcha_cli_batched=0,
+        **matcha_train["launches"], legacy_flow_inference=0,
+        legacy_flow_loss=legacy["launches"]["legacy_flow_loss"])
+    k2["per_step_by_path"]["matcha_train_cli"] = matcha_train["per_step"]
+    record["at_matcha_shapes"] = matcha["k1"]
+    record["at_legacy_shapes"] = legacy["k1"]
+    k2["at_matcha_train_shapes"] = matcha_train["k2"]
+    k2["at_legacy_train_shapes"] = legacy["k2"]
+    k2["matcha_step_ms"] = matcha_train["step_ms"]
+    k2["matcha_mas_ms"] = matcha_train["mas_ms"]
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))

@@ -9,21 +9,18 @@ kinds: llm (Qwen2LM), flow (CausalMaskedDiffWithXvec), hift
 (HiFTGenerator, the mel mode's codec.npz), dac (the DACVAE generator, the
 latent mode's codec.npz), s3 (S3TokenizerV2), qwen (a bare HF
 Qwen2ForCausalLM state dict), campplus (CAM++, a torch state dict or a
-campplus.onnx). The .npz is the format both packages load (flax paths
-joined by '||'), so cli/synthesize.py --ckpt_dir and the JAX package
-read the same files. matcha and matcha_hifigan are not ported yet and
-raise.
+campplus.onnx), matcha (a Matcha-TTS acoustic checkpoint: the text
+encoder's subtree), matcha_hifigan (a HiFi-GAN generator_v1 state dict).
+The .npz is the format both packages load (flax paths joined by '||'), so
+cli/synthesize.py --ckpt_dir, cli/matcha.py --ckpt / --vocoder_ckpt and
+the JAX package read the same files.
 """
 from __future__ import annotations
 
 import argparse
 
-KINDS = ("llm", "flow", "hift", "dac", "s3", "qwen", "campplus")
-NOT_PORTED = {
-    "matcha": "models/matcha.py (ROADMAP.md, queue 1, item 4: Matcha)",
-    "matcha_hifigan": "models/matcha_hifigan.py (ROADMAP.md, queue 1, "
-                      "item 4: Matcha)",
-}
+KINDS = ("llm", "flow", "hift", "dac", "s3", "qwen", "campplus", "matcha",
+         "matcha_hifigan")
 
 
 def load_torch_state(path: str) -> dict:
@@ -58,6 +55,12 @@ def convert(kind: str, state: dict, cfg) -> dict:
         return s3.params_from_torch_state(state)
     if kind == "campplus":
         return conv.campplus_params(state)
+    if kind == "matcha":
+        return {"params": conv.matcha_text_encoder_params(state)}
+    if kind == "matcha_hifigan":
+        from minimax_speech_torch.models.matcha_hifigan import \
+            matcha_hifigan_params
+        return matcha_hifigan_params(state)
     params, embed, _ = qwen2.params_from_hf_state(state, cfg.lm.qwen)
     return {"params": {"llm": params["params"],
                        "text_embedding": {"embedding": embed}}}
@@ -65,16 +68,12 @@ def convert(kind: str, state: dict, cfg) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--kind", required=True, choices=[*KINDS, *NOT_PORTED])
+    p.add_argument("--kind", required=True, choices=KINDS)
     p.add_argument("--src", required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--config", default="configs/default.yaml")
     p.add_argument("--override", action="append", default=[])
     args = p.parse_args(argv)
-    if args.kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"--kind {args.kind} needs {NOT_PORTED[args.kind]}, not ported "
-            f"yet")
 
     import numpy as np
 

@@ -207,7 +207,12 @@ class UNetTransformerBlock(nn.Module):
 
 
 class CausalConditionalDecoder(nn.Module):
-    def __init__(self, cfg: DecoderUNetConfig = DecoderUNetConfig()):
+    """in_dim: the channels of the packed input (x, mu, spks, cond) when
+    they are not cfg.in_channels, the timestep embedding's width (Matcha
+    packs zero spks and cond beside its 2 x 80)."""
+
+    def __init__(self, cfg: DecoderUNetConfig = DecoderUNetConfig(),
+                 in_dim: int | None = None):
         super().__init__()
         self.cfg = cfg
         time_dim = cfg.channels[0] * 4
@@ -229,7 +234,7 @@ class CausalConditionalDecoder(nn.Module):
                 self.add_module(f"{name}_conv", cv)
             return res, tfs, cv
 
-        dim = cfg.in_channels
+        dim = in_dim or cfg.in_channels
         self.down = []
         for i, ch in enumerate(cfg.channels):
             self.down.append(stage(f"down_{i}", dim, ch, True))

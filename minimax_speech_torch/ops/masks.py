@@ -74,3 +74,9 @@ def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     reference's constant, kept so attention outputs compare)."""
     zero = torch.zeros((), dtype=dtype, device=mask.device)
     return torch.where(mask, zero, torch.full_like(zero, -1.0e10))
+
+
+def causal_mask(size: int, device=None) -> torch.Tensor:
+    """(size, size) lower-triangular bool mask."""
+    return torch.tril(torch.ones((size, size), dtype=torch.bool,
+                                 device=device))

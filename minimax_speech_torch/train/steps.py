@@ -248,6 +248,25 @@ def make_flow_train_step(model, bf16: bool = False, device=None,
     return step
 
 
+def make_matcha_train_step(model, device=None):
+    """Returns step(state, batch, draws) -> (state, metrics) for
+    models/matcha.MatchaTTS: batch holds tokens, token_len, mels,
+    mel_len on the model's device; draws a models.cfm.CFMDraws. The
+    loss is dur + prior + cfm; metrics: loss, dur, prior, cfm. The model
+    must live on `device` (default cuda, which raises without a GPU)."""
+    check_on(model, resolve_device(device), "the Matcha model")
+
+    def step(state: TrainState, batch, draws):
+        dur, prior, cfm = model(batch["tokens"], batch["token_len"],
+                                batch["mels"], batch["mel_len"], draws)
+        loss = dur + prior + cfm
+        backward_and_update(state, loss)
+        return state, {"loss": loss.detach(), "dur": dur.detach(),
+                       "prior": prior.detach(), "cfm": cfm.detach()}
+
+    return step
+
+
 def backward_and_update(state: TrainState, loss) -> list:
     """Backward of `loss` into the state's parameters, the optimizer's
     update (clip, accumulation, AdamW; it leaves the gradients as they

@@ -5,15 +5,18 @@ the JAX package loads as they are):
   llm.pt   Qwen2LM -> SpeechLM (speech_lm_params)
   flow.pt  CausalMaskedDiffWithXvec -> FlowModel (flow_params)
   hift.pt  HiFTGenerator -> HiFTGenerator (hift_params)
+  CosyVoice1 flow.pt  MaskedDiffWithXvec -> models/legacy_flow
+           (legacy_flow_params)
+  Matcha-TTS acoustic checkpoint -> models/matcha.TextEncoder
+           (matcha_text_encoder_params)
 
 Port of minimax_speech_tpu/utils/convert.py; the S3 tokenizer's, the
 DAC-VAE's and Qwen2's converters live beside their models
 (params_from_torch_state, params_from_hf_state). Numpy in and out: the
 state dicts are {name: numpy array}, as cli/convert_checkpoint.py loads
 them with torch.load; `campplus_params` also takes a campplus.onnx's
-initializers (utils/onnx_reader.py). The Matcha text-encoder and
-legacy-flow converters wait for their models (ROADMAP.md, queue 1,
-items 3 and 4).
+initializers (utils/onnx_reader.py). Matcha's HiFi-GAN converter lives
+in models/matcha_hifigan.py.
 """
 from __future__ import annotations
 
@@ -410,4 +413,156 @@ def campplus_params(state: dict,
     p["dense_linear"] = {
         "kernel": state["xvector.dense.linear.weight"][:, :, 0].T}
     p["dense_bn"] = _bn(state, "xvector.dense.nonlinear.batchnorm.")
+    return {"params": p}
+
+
+# ---------------------------------------------------------------------------
+# Matcha-TTS text encoder
+# ---------------------------------------------------------------------------
+
+def matcha_text_encoder_params(state: dict, n_layers: int = 6,
+                               prenet_layers: int = 3,
+                               prefix: str = "encoder.") -> dict:
+    """A released Matcha-TTS acoustic state dict -> models/matcha
+    TextEncoder's subtree (keys 'encoder.emb.weight',
+    'encoder.prenet.conv_layers.*', 'encoder.encoder.attn_layers.*',
+    'encoder.proj_m.*', 'encoder.proj_w.*')."""
+    def g(k):
+        return np.asarray(state[prefix + k])
+
+    def ln(k):
+        return {"gamma": g(k + ".gamma"), "beta": g(k + ".beta")}
+
+    def conv(k):
+        return {"kernel": _conv(g(k + ".weight")), "bias": g(k + ".bias")}
+
+    def dense1x1(k):  # torch Conv1d k=1 -> Dense
+        return {"kernel": _dw(g(k + ".weight")[:, :, 0]),
+                "bias": g(k + ".bias")}
+
+    p = {"emb": {"embedding": g("emb.weight")}}
+    pre = {"proj": dense1x1("prenet.proj")}
+    for i in range(prenet_layers):
+        pre[f"conv_{i}"] = conv(f"prenet.conv_layers.{i}")
+        pre[f"norm_{i}"] = ln(f"prenet.norm_layers.{i}")
+    p["prenet"] = pre
+    for i in range(n_layers):
+        p[f"attn_{i}"] = {
+            f"conv_{nm}": dense1x1(f"encoder.attn_layers.{i}.conv_{nm}")
+            for nm in ("q", "k", "v", "o")}
+        p[f"norm1_{i}"] = ln(f"encoder.norm_layers_1.{i}")
+        p[f"ffn_{i}"] = {
+            "conv_1": conv(f"encoder.ffn_layers.{i}.conv_1"),
+            "conv_2": conv(f"encoder.ffn_layers.{i}.conv_2")}
+        p[f"norm2_{i}"] = ln(f"encoder.norm_layers_2.{i}")
+    p["proj_m"] = dense1x1("proj_m")
+    p["dp"] = {"conv_1": conv("proj_w.conv_1"),
+               "norm_1": ln("proj_w.norm_1"),
+               "conv_2": conv("proj_w.conv_2"),
+               "norm_2": ln("proj_w.norm_2"),
+               "proj": dense1x1("proj_w.proj")}
+    return p
+
+
+# ---------------------------------------------------------------------------
+# CosyVoice1 flow.pt -> MaskedDiffWithXvec
+# ---------------------------------------------------------------------------
+
+def _noncausal_block_params(state: dict, prefix: str) -> dict:
+    """Block1D: block.0 conv (k 3), block.1 GroupNorm."""
+    return {
+        "conv": {"kernel": _conv(state[prefix + "block.0.weight"]),
+                 "bias": state[prefix + "block.0.bias"]},
+        "norm": {"scale": state[prefix + "block.1.weight"],
+                 "bias": state[prefix + "block.1.bias"]},
+    }
+
+
+def _noncausal_resnet_params(state: dict, prefix: str) -> dict:
+    return {
+        "block1": _noncausal_block_params(state, prefix + "block1."),
+        "block2": _noncausal_block_params(state, prefix + "block2."),
+        "mlp": {"kernel": _dw(state[prefix + "mlp.1.weight"]),
+                "bias": state[prefix + "mlp.1.bias"]},
+        "res_conv": {"kernel": state[prefix + "res_conv.weight"][:, :, 0].T,
+                     "bias": state[prefix + "res_conv.bias"]},
+    }
+
+
+def legacy_flow_params(state: dict, cfg) -> dict:
+    """An upstream MaskedDiffWithXvec state dict (cfg: its
+    LegacyFlowConfig) -> models/legacy_flow's tree: the plain conformer
+    encoder, the regulator, and the non-causal UNet, whose Downsample1D
+    and Upsample1D wrap their convs in `.conv`."""
+    state = strip_prefix(state)
+    p: dict = {}
+    p["input_embedding"] = {"embedding": state["input_embedding.weight"]}
+    p["spk_embed_affine_layer"] = {
+        "kernel": _dw(state["spk_embed_affine_layer.weight"]),
+        "bias": state["spk_embed_affine_layer.bias"]}
+    p["encoder_proj"] = {"kernel": _dw(state["encoder_proj.weight"]),
+                         "bias": state["encoder_proj.bias"]}
+
+    e = "encoder."
+    enc: dict = {
+        "embed_linear": {"kernel": _dw(state[e + "embed.out.0.weight"]),
+                         "bias": state[e + "embed.out.0.bias"]},
+        "embed_norm": {"scale": state[e + "embed.out.1.weight"],
+                       "bias": state[e + "embed.out.1.bias"]}}
+    for i in range(cfg.encoder.num_blocks):
+        enc[f"layers_{i}"] = _conformer_layer_params(
+            state, f"{e}encoders.{i}.")
+    enc["after_norm"] = {"scale": state[e + "after_norm.weight"],
+                         "bias": state[e + "after_norm.bias"]}
+    p["encoder"] = enc
+
+    reg: dict = {}
+    n_stages = len(cfg.regulator_ratios)
+    r = "length_regulator.model."
+    for i in range(n_stages):
+        reg[f"conv_{i}"] = {"kernel": _conv(state[f"{r}{3 * i}.weight"]),
+                            "bias": state[f"{r}{3 * i}.bias"]}
+        reg[f"norm_{i}"] = {"scale": state[f"{r}{3 * i + 1}.weight"],
+                            "bias": state[f"{r}{3 * i + 1}.bias"]}
+    reg["out_proj"] = {
+        "kernel": state[f"{r}{3 * n_stages}.weight"][:, :, 0].T,
+        "bias": state[f"{r}{3 * n_stages}.bias"]}
+    p["length_regulator"] = reg
+
+    d = "decoder.estimator."
+    est: dict = {"time_mlp": {
+        name: {"kernel": _dw(state[f"{d}time_mlp.{name}.weight"]),
+               "bias": state[f"{d}time_mlp.{name}.bias"]}
+        for name in ("linear_1", "linear_2")}}
+
+    def stage(name: str, pre: str):
+        est[f"{name}_resnet"] = _noncausal_resnet_params(state, pre + "0.")
+        for j in range(cfg.unet.n_blocks):
+            est[f"{name}_tf_{j}"] = _unet_tf_block_params(
+                state, pre + f"1.{j}.")
+
+    def conv_at(pre: str, wrapped: bool, transposed: bool = False):
+        key = pre + ("2.conv." if wrapped else "2.")
+        w = state[key + "weight"]
+        # ConvTranspose1d (in, out, k) -> (k, out, in); Conv1d -> (k, in, out)
+        return {"kernel": w.transpose(2, 1, 0) if transposed else _conv(w),
+                "bias": state[key + "bias"]}
+
+    n = len(cfg.unet.channels)
+    for i in range(n):
+        pre = f"{d}down_blocks.{i}."
+        stage(f"down_{i}", pre)
+        est[f"down_{i}_conv"] = conv_at(pre, wrapped=i != n - 1)
+    for i in range(cfg.unet.num_mid_blocks):
+        stage(f"mid_{i}", f"{d}mid_blocks.{i}.")
+    for i in range(n):
+        pre = f"{d}up_blocks.{i}."
+        stage(f"up_{i}", pre)
+        est[f"up_{i}_conv"] = conv_at(pre, wrapped=i != n - 1,
+                                      transposed=i != n - 1)
+    est["final_block"] = _noncausal_block_params(state, d + "final_block.")
+    est["final_proj"] = {
+        "kernel": state[d + "final_proj.weight"][:, :, 0].T,
+        "bias": state[d + "final_proj.bias"]}
+    p["estimator"] = est
     return {"params": p}

@@ -10,6 +10,8 @@ module path plus a leaf name fixed by the module type:
 
   Linear     weight (out, in)     <- Dense kernel (in, out), transposed
   Conv1d     weight (out, in/g, k) <- Conv kernel (k, in/g, out)
+  ConvTranspose1d weight (in, out, k) <- kernel (k, out, in), the JAX
+                      package's transposed-conv layout (ops/safe_conv)
   Conv2d     weight (out, in, kh, kw) <- Conv kernel (kh, kw, in, out)
   LayerNorm, GroupNorm  weight    <- scale
   Embedding  weight               <- embedding
@@ -68,7 +70,8 @@ def _leaf(mod: nn.Module, pname: str):
     ident = (pname, lambda a: a, lambda a: a)
     if isinstance(mod, nn.Linear) and pname == "weight":
         return "kernel", lambda a: a.T, lambda a: a.T
-    if isinstance(mod, nn.Conv1d) and pname == "weight":
+    if isinstance(mod, (nn.Conv1d, nn.ConvTranspose1d)) \
+            and pname == "weight":
         return ("kernel", lambda a: a.transpose(2, 1, 0),
                 lambda a: a.transpose(2, 1, 0))
     if isinstance(mod, nn.Conv2d) and pname == "weight":
@@ -178,10 +181,14 @@ def load_flax_params(module: nn.Module, tree: dict) -> nn.Module:
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights at the scales flax's defaults give (Dense/Conv
     lecun-normal kernels and zero biases, Embed N(0, 1/features), norms
-    at one and zero). Modules with parameters of their own define
-    `init_weights(generator)`. Deterministic for a given generator."""
+    at one and zero). A module that defines `init_weights(generator)`
+    initialises its own parameters (a zero-initialised Linear, or
+    parameters of its own). Deterministic for a given generator."""
     for mod in module.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        if hasattr(mod, "init_weights"):
+            mod.init_weights(generator)
+        elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d,
+                              nn.ConvTranspose1d)):
             w = mod.weight
             fan_in = math.prod(w.shape[1:])
             w.normal_(0.0, fan_in ** -0.5, generator=generator)
@@ -193,6 +200,4 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-        elif hasattr(mod, "init_weights"):
-            mod.init_weights(generator)
     return module

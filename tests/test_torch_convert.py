@@ -1,13 +1,14 @@
 """The port's checkpoint converters (utils/convert.py, the three
-params_from_*_state functions, cli/convert_checkpoint.py) against the JAX
-package's.
+params_from_*_state functions, models/matcha_hifigan.py's,
+cli/convert_checkpoint.py) against the JAX package's.
 
 CPU. Random state dicts in the upstream key layouts at small widths, at
 tests/test_convert.py's configs: llm (its helpers), dac, s3 and qwen
 built here, flow and hift by chip_smoke.py's builders, which phase 27
-runs at full width. The port's variable trees must equal JAX's exactly,
-path for path and element for element, and load into the port's
-modules. cli/convert_checkpoint.main
+runs at full width; matcha and matcha_hifigan by test_torch_matcha.py's,
+at the default widths the CLI converts. The port's variable trees must
+equal JAX's exactly, path for path and element for element, and load
+into the port's modules. cli/convert_checkpoint.main
 turns torch.save files into .npz files that both packages load, and a
 HiFT from the converted hift state dict gives JAX's waveform.
 """
@@ -27,9 +28,13 @@ from minimax_speech_torch.models import hifigan as t_h
 from minimax_speech_torch.models import s3tokenizer as t_s3
 from minimax_speech_torch.models.flow import FlowModel
 from minimax_speech_torch.models.llm import SpeechLM
+from minimax_speech_torch.models.matcha import MatchaConfig, TextEncoder
+from minimax_speech_torch.models.matcha_hifigan import (MatchaHiFiGAN,
+                                                        MatchaHiFiGANConfig)
 from minimax_speech_torch.utils import params_io as t_io
 from minimax_speech_tpu.models import dac_vae as j_dac
 from minimax_speech_tpu.models import hifigan as j_h
+from minimax_speech_tpu.models import matcha_hifigan as j_voc
 from minimax_speech_tpu.models import qwen2 as j_qwen2
 from minimax_speech_tpu.models import s3tokenizer as j_s3
 from minimax_speech_tpu.utils import convert as j_conv
@@ -37,6 +42,7 @@ from minimax_speech_tpu.utils import params_io as j_io
 import chip_smoke
 from tests.test_convert import FLOW_CFG, HIFT_CFG, LM_CFG, arr, speaker_sd
 from tests.test_torch_bridge import port_config
+from tests.test_torch_matcha import hifigan_state, text_encoder_state
 from tests import torch_cpu
 
 torch_cpu.share_cores()
@@ -199,6 +205,14 @@ KINDS = {
                S3_CFG, t_s3.S3TokenizerConfig))),
     "qwen": (lambda: qwen_sd(LM_CFG.qwen, "model."), _jax_qwen,
              lambda cfg: SpeechLM(cfg.lm).llm),
+    "matcha": (lambda: text_encoder_state(MatchaConfig(),
+                                          np.random.default_rng(0)),
+               lambda sd: {"params": j_conv.matcha_text_encoder_params(sd)},
+               lambda cfg: TextEncoder(MatchaConfig())),
+    "matcha_hifigan": (lambda: hifigan_state(MatchaHiFiGANConfig(),
+                                             np.random.default_rng(1)),
+                       j_voc.matcha_hifigan_params,
+                       lambda cfg: MatchaHiFiGAN()),
 }
 
 
@@ -224,10 +238,13 @@ def test_converter_gives_jax_tree(kind):
 
 
 def test_not_ported_kinds_raise(tmp_path):
-    for kind in t_cli.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_cli.main(["--kind", kind, "--src", str(tmp_path / "x.pt"),
-                        "--out", str(tmp_path / "x.npz")])
+    """No kind of the JAX CLI is left unported (matcha and matcha_hifigan
+    were the last, tested above), and a kind the CLI does not know is
+    refused."""
+    assert set(t_cli.KINDS) == set(KINDS) | {"campplus"}
+    with pytest.raises(SystemExit):
+        t_cli.main(["--kind", "flowae", "--src", str(tmp_path / "x.pt"),
+                    "--out", str(tmp_path / "x.npz")])
 
 
 @pytest.mark.parametrize("kind", ["hift", "flow"])

@@ -165,7 +165,16 @@ def test_chip_smoke_imports_no_jax():
         "minimax_speech_torch.utils.onnx_reader, "
         "minimax_speech_torch.utils.convert, "
         "minimax_speech_torch.utils.audio_signal, "
-        "minimax_speech_torch.utils.audio_transforms\n"
+        "minimax_speech_torch.utils.audio_transforms, "
+        "minimax_speech_torch.ops.interpolate, "
+        "minimax_speech_torch.ops.monotonic_align, "
+        "minimax_speech_torch.models.legacy_flow, "
+        "minimax_speech_torch.models.legacy_lm, "
+        "minimax_speech_torch.models.matcha, "
+        "minimax_speech_torch.models.matcha_hifigan, "
+        "minimax_speech_torch.infer.matcha_text, "
+        "minimax_speech_torch.cli.matcha, "
+        "minimax_speech_torch.cli.train_matcha\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'minimax_speech_tpu')]\n"
