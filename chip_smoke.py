@@ -260,6 +260,32 @@ a line; any failure ends the run with a non-zero exit:
      and K2 at the loss's shape against their plain versions and timed;
      then the legacy LM at LegacyLMConfig(): a loss forward and backward
      on 4 plans, card vs CPU.
+ 45. flowae's DiTo at DiToConfig() (encoder 64 channels, strides 4, 4,
+     4, z_dim 32), the DiT renderer (192 wide, 6 deep, 6 heads, patch
+     16), then the 1-D consistency UNet (128/256/512, pe 320, t 1280):
+     encode and an 18-step decode of 2 clips at 24 kHz (119,808 samples,
+     the longest multiple of 1,024 in 5 s; 7,488 DiT tokens) without and
+     with renderer CFG 2.0 (ms per render step, RTF, peak memory, a
+     profiled render step); make_dito_step at B 4 on
+     16,384-sample crops, bf16 off and on (step_s, peak); card vs CPU at
+     4,096 samples: the loss, every leaf's gradient, a 3-step CFG decode;
+ 46. ZDMConfig() over the DiT DiTo's latents: make_zdm_step at B 4 on
+     the crops, zdm_generate of phase 45's 2 clips with its 18-step
+     decode;
+     GLPToConfig() against the MSD: a generator and a discriminator step
+     at B 4; card vs CPU at 4,096 samples (the prior's loss and
+     gradients, GLPTo's losses, weight and gradients);
+ 47. the image track at 256 x 256, B 4: DiToImageConfig() (f8c4, the
+     2-D UNet at 128/256/512) a train step and a 50-step decode;
+     ImageZDMConfig(n_classes=10) a step and class-conditional generation
+     with CFG 2.0; VQGANConfig() the generator step (LPIPS, the adaptive
+     GAN weight) and the discriminator step; card vs CPU at 32 x 32;
+ 48. the four flowae CLIs at their default --device: train_flowae
+     --synthetic dito then zdm --ae_params, dito_infer --ckpt (phase
+     46's autoencoder) on a written wav, train_flowae_image --synthetic
+     dito then zdm --class_cond, image_dito --sample; the files each
+     writes. Phases 45-48 launch neither K1 nor K2 (flowae's attention is
+     plain torch at head dim 32), asserted per phase.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -5231,6 +5257,657 @@ def legacy_phase(card: str, device="cuda", cpu_steps: int = 2,
     return rec
 
 
+
+# --- flowae (phases 45-48) ---------------------------------------------------
+FLOWAE_SECONDS, FLOWAE_CLIPS = 5.0, 2  # the decode: 2 clips of 5 s
+FLOWAE_PATHS = ("dito_decode", "dito_train", "zdm_train", "zdm_generate",
+                "glpto_train", "dito_image_train", "dito_image_decode",
+                "image_zdm_train", "image_zdm_generate", "vqgan_train",
+                "flowae_clis")
+FLOWAE_CROP, FLOWAE_BATCH = 16384, 4   # the train steps
+FLOWAE_CPU_LEN = 4096                  # card vs CPU, samples
+FLOWAE_RTOL = 1e-4   # forward outputs and Euler decodes, of the peak
+# the adaptive GAN weights (a ratio of two gradient norms) and the totals
+# they scale, card vs CPU: GLPTo's perceptual (STFT log-magnitude) term
+# has the input gradient 2 / (|S| ln 10) per bin, which magnifies float32
+# rounding of the smallest magnitudes to a few 1e-4
+# (tests/test_torch_flowae.py); LPIPS's VGG ReLUs flip gates under
+# rounding (as phase 43's text encoder), moving the VQGAN's by ~4e-4
+ADAPTIVE_WEIGHT_RTOL = 1e-3
+
+
+def flowae_len(seconds: float, sr: int = 24000) -> int:
+    """The longest multiple of 1024 (the DiT's 64 x 16) in `seconds`."""
+    return int(seconds * sr) // 1024 * 1024
+
+
+def no_attention_kernels(what: str):
+    k2, k1 = read_counts()
+    if k1 or sum(k2.values()):
+        raise AssertionError(f"{what}: K1 {k1}, K2 {k2} launched")
+
+
+def _peak_reset(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(device) -> float:
+    import torch
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _timed(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _init(module, seed: int, device):
+    import torch
+
+    from minimax_speech_torch.utils import params_io
+    return params_io.init_params(
+        module, torch.Generator().manual_seed(seed)).to(device)
+
+
+def _clips(n: int, length: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return np.stack([speechlike(rng, length) for _ in range(n)])[..., None]
+
+
+def _step_times(step_once, device, warm: int = 1, timed: int = 3) -> tuple:
+    """(median seconds of `timed` calls after `warm`, the last metrics)."""
+    for _ in range(warm):
+        step_once()
+    secs = []
+    for _ in range(timed):
+        m, dt = _timed(step_once, device)
+        secs.append(dt)
+    m = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"non-finite metrics {m}")
+    return statistics.median(secs), m
+
+
+def _state(module):
+    from minimax_speech_torch.train import schedule, steps
+    return steps.make_train_state(module, schedule.make_optimizer(
+        lr=1e-4, warmup_steps=0))
+
+
+def _held_grads(label, grads: dict, ref: dict, rtol=TRAIN_GRAD_RTOL):
+    """Every leaf within rtol of its largest element; a key bias (0 but
+    for rounding under softmax) of the model's largest."""
+    sym = [n for n in ref if n.endswith("k.bias")]
+    err = grad_errors(grads, ref, sym)
+    worst = max(err, key=err.get)
+    log(f"[flowae] {label}: {len(err)} leaves, worst gradient "
+        f"{err[worst]:.2e} of its largest ({worst}; tol {rtol:g})")
+    if err[worst] > rtol:
+        raise AssertionError(f"{label}: gradients differ card vs CPU")
+
+
+def _rel(label, a: float, b: float, rtol: float):
+    d = abs(a - b) / max(abs(b), 1e-12)
+    if d > rtol:
+        raise AssertionError(f"{label}: {a} vs {b} (rel {d:.2e} > {rtol})")
+    return d
+
+
+def _peak_err(label, a, b, rtol=FLOWAE_RTOL) -> float:
+    a, b = a.detach().cpu().float(), b.detach().cpu().float()
+    err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    if a.shape != b.shape or not torch_finite(a) or err > rtol:
+        raise AssertionError(f"{label}: {err:.2e} of the peak (tol {rtol})")
+    return err
+
+
+def torch_finite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def _grads_of(module, loss) -> dict:
+    """{name: the gradient of loss, on the CPU} of every parameter."""
+    import torch
+    gs = torch.autograd.grad(loss, list(module.parameters()),
+                             allow_unused=True)
+    return {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+            for (n, p), g in zip(module.named_parameters(), gs)}
+
+
+def dito_cross_check(cfg, device, length: int = FLOWAE_CPU_LEN,
+                     n_steps: int = 3) -> dict:
+    """The DiTo at cfg, card vs CPU on the same weights and draws at
+    `length` samples: the loss (zaug 0.5) and every leaf's gradient, and
+    an n_steps decode with CFG 2.0 from the same noise."""
+    import torch
+
+    from minimax_speech_torch.flowae import dito
+    x = torch.as_tensor(_clips(2, length, 451))
+    draws = dito.make_dito_draws(cfg, x.shape,
+                                 torch.Generator().manual_seed(452), 0.5)
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+    runs = {}
+    for dev in ("cpu", device):
+        model = _init(dito.DiToAudio(cfg, length), 0, dev)
+        rec, kl, _ = model.loss(x.to(dev), draws.to(dev), 0.5)
+        grads = _grads_of(model, rec + 1e-4 * kl)
+        with torch.no_grad():
+            mu = model.encode(x.to(dev))[1]
+        out = dito.dito_decode(model, mu, length, noise, n_steps=n_steps,
+                               guidance=2.0)
+        runs[dev] = (float(rec.detach()), float(kl.detach()), grads, out)
+    (rc, kc, gc, oc), (rd, kd, gd, od) = runs["cpu"], runs[device]
+    d = max(_rel("DiTo rec loss", rd, rc, TRAIN_METRIC_RTOL),
+            _rel("DiTo kl", kd, kc, TRAIN_METRIC_RTOL))
+    e = _peak_err("DiTo decode", od, oc)
+    log(f"[flowae] DiTo {cfg.renderer_type} card vs CPU at {length} "
+        f"samples: loss {rd:.6f} vs {rc:.6f} (rel {d:.2e}, tol "
+        f"{TRAIN_METRIC_RTOL:g}); {n_steps}-step CFG decode {e:.2e} of its "
+        f"peak (tol {FLOWAE_RTOL:g})")
+    _held_grads(f"DiTo {cfg.renderer_type} gradients", gd, gc)
+    return {"loss_rel": d, "decode_err": e}
+
+
+def dito_phase(card: str, device="cuda", seconds=FLOWAE_SECONDS,
+               crop=FLOWAE_CROP, batch=FLOWAE_BATCH, n_steps=18,
+               cpu_len=FLOWAE_CPU_LEN, renderers=("dit", "unet")) -> dict:
+    """Phase 45: DiToConfig() with each renderer: encode and an n_steps
+    decode of FLOWAE_CLIPS clips of `seconds`, without and with CFG 2.0;
+    make_dito_step at `batch` x `crop`, bf16 off and on; card vs CPU
+    (dito_cross_check). K1 and K2 0. Returns the record and the DiT
+    DiTo (phase 46's autoencoder and phase 48's --ckpt)."""
+    import torch
+
+    from minimax_speech_torch.flowae import dito, trainer
+    n = flowae_len(seconds)
+    x = torch.as_tensor(_clips(FLOWAE_CLIPS, n, 45), device=device)
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
+    train_x = torch.as_tensor(_clips(batch, crop, 46), device=device)
+    rec, keep = {}, None
+    for r in renderers:
+        cfg = dataclasses.replace(dito.DiToConfig(), renderer_type=r)
+        _peak_reset(device)
+        reset_counts()
+        model = _init(dito.DiToAudio(cfg, n), 0, device)
+        with torch.no_grad():
+            model.encode(x)  # warm-up: cuDNN's and cuBLAS's first calls
+            (_, mu, _), enc_s = _timed(lambda: model.encode(x), device)
+        dito.dito_decode(model, mu, n, noise, n_steps=1)
+        out = {"encode_s": enc_s}
+        for g in (1.0, 2.0):
+            y, dt = _timed(lambda: dito.dito_decode(
+                model, mu, n, noise, n_steps=n_steps, guidance=g), device)
+            if y.shape != x.shape or not torch_finite(y):
+                raise AssertionError("DiTo decode: bad output")
+            out[f"cfg{g:g}"] = {"decode_s": dt, "ms_per_step":
+                                1e3 * dt / n_steps,
+                                "rtf": dt / (FLOWAE_CLIPS * seconds)}
+        out["decode_peak_gib"] = _peak_gib(device)
+        if torch.device(device).type == "cuda":
+            out["profile"] = profile_step(lambda: dito.dito_decode(
+                model, mu, n, noise, n_steps=1), f"one DiTo {r} render step "
+                f"at {FLOWAE_CLIPS} x {n}")
+        model = model.cpu() if r == "dit" else None
+        for bf16 in (False, True):
+            _peak_reset(device)
+            tm = _init(dito.DiToAudio(cfg, crop), 0, device)
+            state, ema = _state(tm), trainer.ema_init(tm)
+            step = trainer.make_dito_step(tm, bf16=bf16, device=device)
+            gen = torch.Generator().manual_seed(47)
+
+            def once():
+                return step(state, ema, {"audio": train_x},
+                            dito.make_dito_draws(cfg, train_x.shape, gen,
+                                                 0.1).to(device))[2]
+            step_s, m = _step_times(once, device)
+            out[f"train_bf16_{bf16}"] = {"step_s": step_s, "peak_gib":
+                                         _peak_gib(device),
+                                         "loss": m["loss"]}
+            del tm, state, ema
+        no_attention_kernels(f"DiTo ({r})")
+        c = out["cfg1"], out["cfg2"]
+        tokens = f", {n // 16} DiT tokens" if r == "dit" else ""
+        log(f"[flowae] {card} | DiTo {r} renderer, {FLOWAE_CLIPS} x "
+            f"{seconds:g} s ({n} samples{tokens}): "
+            f"encode {1e3 * enc_s:.1f} ms; {n_steps}-step decode "
+            f"{c[0]['decode_s']:.3f} s ({c[0]['ms_per_step']:.2f} ms/step, "
+            f"RTF {c[0]['rtf']:.4f}), with CFG 2.0 {c[1]['decode_s']:.3f} s "
+            f"({c[1]['ms_per_step']:.2f} ms/step, RTF {c[1]['rtf']:.4f}); "
+            f"peak {out['decode_peak_gib']:.2f} GiB | make_dito_step B "
+            f"{batch} x {crop}: step_s {out['train_bf16_False']['step_s']:.4f}"
+            f" (peak {out['train_bf16_False']['peak_gib']:.2f} GiB), bf16 "
+            f"{out['train_bf16_True']['step_s']:.4f} (peak "
+            f"{out['train_bf16_True']['peak_gib']:.2f} GiB) | K1 0, K2 0")
+        out["cross"] = dito_cross_check(cfg, device, cpu_len)
+        rec[r] = out
+        if r == "dit":
+            keep = model.to(device)
+    return rec, keep
+
+
+def zdm_glpto_phase(card: str, ae, device="cuda", seconds=FLOWAE_SECONDS,
+                    crop=FLOWAE_CROP, batch=FLOWAE_BATCH,
+                    cpu_len=FLOWAE_CPU_LEN) -> dict:
+    """Phase 46: ZDMConfig() over `ae` (the DiT DiTo): make_zdm_step at
+    `batch` x `crop`, zdm_generate of FLOWAE_CLIPS x `seconds` with its
+    decode; GLPToConfig() and the MSD: a generator and a discriminator
+    step at `batch` x `crop`; card vs CPU at cpu_len samples. K1, K2 0."""
+    import torch
+
+    from minimax_speech_torch.flowae import fm, glpto, trainer, zdm
+    from minimax_speech_torch.models.discriminators import MSD
+    n = flowae_len(seconds)
+    zcfg = zdm.ZDMConfig()
+    train_x = torch.as_tensor(_clips(batch, crop, 46), device=device)
+    rec = {}
+    reset_counts()
+    _peak_reset(device)
+    prior = _init(zdm.ZDMNet(zcfg, n // 64), 1, device)
+    state, ema = _state(prior), trainer.ema_init(prior)
+    step = zdm.make_zdm_step(prior, ae, device=device)
+    gen = torch.Generator().manual_seed(48)
+    rec["zdm_train_step_s"], m = _step_times(lambda: step(
+        state, ema, {"audio": train_x}, fm.make_fm_draws(
+            zcfg.fm, (batch, crop // 64, zcfg.z_dim), gen).to(device))[2],
+        device)
+    rec["zdm_train_peak_gib"] = _peak_gib(device)
+    _peak_reset(device)
+    noise = zdm.start_noises(None, torch.Generator().manual_seed(2), [
+        (FLOWAE_CLIPS, n // 64, zcfg.z_dim), (FLOWAE_CLIPS, n, 1)], "cpu")
+    y, rec["zdm_generate_s"] = _timed(lambda: zdm.zdm_generate(
+        prior, ae, FLOWAE_CLIPS, n // 64, n, noise), device)
+    if y.shape != (FLOWAE_CLIPS, n, 1) or not torch_finite(y):
+        raise AssertionError("zdm_generate: bad output")
+    rec["zdm_generate_peak_gib"] = _peak_gib(device)
+    del prior, state, ema
+
+    _peak_reset(device)
+    gcfg = glpto.GLPToConfig()
+    g = _init(glpto.GLPToAudio(gcfg), 2, device)
+    d = _init(MSD(), 3, device)
+    gen_step, disc_step = glpto.make_glpto_steps(g, d, gcfg, device=device)
+    g_state, d_state = _state(g), _state(d)
+    egen = torch.Generator().manual_seed(49)
+
+    def eps():
+        return torch.randn((batch, crop // 64, gcfg.z_dim),
+                           generator=egen).to(device)
+    rec["glpto_disc_step_s"], _ = _step_times(
+        lambda: disc_step(d_state, {"audio": train_x}, eps())[1], device)
+    rec["glpto_gen_step_s"], m = _step_times(
+        lambda: gen_step(g_state, {"audio": train_x}, eps())[1], device)
+    rec["glpto_peak_gib"] = _peak_gib(device)
+    del g, d, g_state, d_state
+    no_attention_kernels("ZDM and GLPTo")
+    log(f"[flowae] {card} | ZDM (DiT 128 x 4, {n // 64} latent frames "
+        f"built): make_zdm_step B {batch} x {crop // 64} frames step_s "
+        f"{rec['zdm_train_step_s']:.4f} (peak "
+        f"{rec['zdm_train_peak_gib']:.2f} GiB); zdm_generate "
+        f"{FLOWAE_CLIPS} x {seconds:g} s (18 prior + 18 render steps) "
+        f"{rec['zdm_generate_s']:.3f} s, RTF "
+        f"{rec['zdm_generate_s'] / (FLOWAE_CLIPS * seconds):.4f} (peak "
+        f"{rec['zdm_generate_peak_gib']:.2f} GiB) | GLPTo + MSD B {batch} x "
+        f"{crop}: gen step_s {rec['glpto_gen_step_s']:.4f}, disc step_s "
+        f"{rec['glpto_disc_step_s']:.4f} (peak {rec['glpto_peak_gib']:.2f} "
+        f"GiB; adaptive weight {m['gen/adaptive_w']:.4g}) | K1 0, K2 0")
+    rec["cross"] = zdm_glpto_cross_check(ae.cfg, device, cpu_len)
+    return rec
+
+
+def zdm_glpto_cross_check(ae_cfg, device, length=FLOWAE_CPU_LEN) -> dict:
+    """Card vs CPU at `length` samples, the same weights and draws: the
+    prior's step loss and every leaf's gradient over the DiTo's latents;
+    GLPTo's generator losses (the adaptive weight and total within
+    ADAPTIVE_WEIGHT_RTOL with the perceptual term), every generator leaf's
+    gradient without it, the discriminator's loss and gradients."""
+    import torch
+
+    from minimax_speech_torch.flowae import dito, fm, glpto, zdm
+    from minimax_speech_torch.models.discriminators import MSD
+    x = torch.as_tensor(_clips(2, length, 461))
+    zcfg = zdm.ZDMConfig()
+    draws = fm.make_fm_draws(zcfg.fm, (2, length // 64, zcfg.z_dim),
+                             torch.Generator().manual_seed(462))
+    eps = torch.randn((2, length // 64, 32),
+                      generator=torch.Generator().manual_seed(463))
+    runs = {}
+    for dev in ("cpu", device):
+        ae = _init(dito.DiToAudio(ae_cfg, length), 0, dev)
+        prior = _init(zdm.ZDMNet(zcfg, length // 64), 1, dev)
+        with torch.no_grad():
+            z = zdm.normalize_latents(ae.encode(x.to(dev))[1])
+        loss = fm.fm_loss(lambda a, t: prior(a, t), z, zcfg.fm, draws.to(dev))
+        out = {"zdm": (float(loss.detach()), _grads_of(prior, loss))}
+        for pw in (1.0, 0.0):
+            gcfg = glpto.GLPToConfig(perceptual_weight=pw)
+            g = _init(glpto.GLPToAudio(gcfg), 2, dev)
+            d = _init(MSD(), 3, dev)
+            gen_step, disc_step = glpto.make_glpto_steps(g, d, gcfg,
+                                                         device=dev)
+            seen = []
+            orig = glpto.backward_and_update
+            glpto.backward_and_update = lambda st, loss: seen.append(
+                orig(st, loss)) or seen[-1]
+            try:
+                _, gm = gen_step(_state(g), {"audio": x.to(dev)}, eps.to(dev))
+                if pw:
+                    g = _init(glpto.GLPToAudio(gcfg), 2, dev)
+                    _, dm = glpto.make_glpto_steps(g, d, gcfg, device=dev)[
+                        1](_state(d), {"audio": x.to(dev)}, eps.to(dev))
+            finally:
+                glpto.backward_and_update = orig
+            names = [nm for nm, _ in g.named_parameters()]
+            out[f"gen{pw:g}"] = ({k: float(v) for k, v in gm.items()},
+                                 dict(zip(names, (t.cpu() for t in seen[0]))))
+            if pw:
+                dn = [nm for nm, _ in d.named_parameters()]
+                out["disc"] = (float(dm["disc/loss"]),
+                               dict(zip(dn, (t.cpu() for t in seen[1]))))
+        runs[dev] = out
+    c, k = runs["cpu"], runs[device]
+    _rel("ZDM loss", k["zdm"][0], c["zdm"][0], TRAIN_METRIC_RTOL)
+    _held_grads("ZDM gradients", k["zdm"][1], c["zdm"][1])
+    for key in ("gen/nll", "gen/kl", "gen/g_adv"):
+        _rel(f"GLPTo {key}", k["gen1"][0][key], c["gen1"][0][key],
+             TRAIN_METRIC_RTOL)
+    w = _rel("GLPTo adaptive weight", k["gen1"][0]["gen/adaptive_w"],
+             c["gen1"][0]["gen/adaptive_w"], ADAPTIVE_WEIGHT_RTOL)
+    _rel("GLPTo total", k["gen1"][0]["gen/loss"], c["gen1"][0]["gen/loss"],
+         ADAPTIVE_WEIGHT_RTOL)
+    w0 = _rel("GLPTo adaptive weight (no perceptual term)",
+              k["gen0"][0]["gen/adaptive_w"], c["gen0"][0]["gen/adaptive_w"],
+              TRAIN_METRIC_RTOL)
+    _held_grads("GLPTo generator gradients (no perceptual term)",
+                k["gen0"][1], c["gen0"][1])
+    _rel("GLPTo disc loss", k["disc"][0], c["disc"][0], TRAIN_METRIC_RTOL)
+    _held_grads("GLPTo discriminator gradients", k["disc"][1], c["disc"][1])
+    log(f"[flowae] ZDM and GLPTo card vs CPU at {length} samples: ZDM loss "
+        f"{k['zdm'][0]:.6f} vs {c['zdm'][0]:.6f}; GLPTo adaptive weight "
+        f"{k['gen1'][0]['gen/adaptive_w']:.6g} vs "
+        f"{c['gen1'][0]['gen/adaptive_w']:.6g} (rel {w:.2e}, tol "
+        f"{ADAPTIVE_WEIGHT_RTOL:g}), without the perceptual term rel "
+        f"{w0:.2e} (tol {TRAIN_METRIC_RTOL:g})")
+    return {"glpto_weight_rel": w, "glpto_weight_rel_no_perceptual": w0}
+
+
+def image_phase(card: str, device="cuda", size=256, batch=4,
+                render_steps=None, cpu_size=32) -> dict:
+    """Phase 47: DiToImageConfig() a train step and a decode at
+    render_steps (default 50) of `batch` images of size^2;
+    ImageZDMConfig(n_classes=10) a step and generation with CFG 2.0;
+    VQGANConfig() the generator step (LPIPS, adaptive weight) and the
+    discriminator step; card vs CPU at cpu_size. K1, K2 0."""
+    import torch
+
+    from minimax_speech_torch.data.image_folder import synthetic_images
+    from minimax_speech_torch.flowae import dito, image, trainer, vqgan
+    rec = {}
+    hw = (size, size)
+    x = torch.as_tensor(synthetic_images(batch, size, 47), device=device)
+    reset_counts()
+    _peak_reset(device)
+    cfg = image.DiToImageConfig()
+    ae = _init(image.DiToImage(cfg, hw), 0, device)
+    state, ema = _state(ae), trainer.ema_init(ae)
+    step = image.make_dito_image_step(ae, device=device)
+    gen = torch.Generator().manual_seed(50)
+    rec["dito_train_step_s"], _ = _step_times(lambda: step(
+        state, ema, {"image": x}, dito.make_dito_draws(
+            cfg, x.shape, gen, 0.1).to(device))[2], device, timed=2)
+    rec["dito_train_peak_gib"] = _peak_gib(device)
+    del state, ema
+    _peak_reset(device)
+    steps_n = render_steps or cfg.render_n_steps
+    with torch.no_grad():
+        mu = ae.encode(x)[1]
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(5))
+    image.dito_image_decode(ae, mu, hw, noise, n_steps=1)  # warm-up
+    y, dt = _timed(lambda: image.dito_image_decode(ae, mu, hw, noise,
+                                                   n_steps=steps_n), device)
+    if y.shape != x.shape or not torch_finite(y):
+        raise AssertionError("dito_image_decode: bad output")
+    rec["decode_s"], rec["decode_ms_per_step"] = dt, 1e3 * dt / steps_n
+    rec["decode_peak_gib"] = _peak_gib(device)
+    if torch.device(device).type == "cuda":
+        rec["profile"] = profile_step(lambda: image.dito_image_decode(
+            ae, mu, hw, noise, n_steps=1), f"one image DiTo render step at "
+            f"{batch} x {size}^2")
+
+    _peak_reset(device)
+    z_hw = tuple(mu.shape[1:3])
+    zcfg = image.ImageZDMConfig(n_classes=10, guidance=2.0,
+                                net=dataclasses.replace(
+                                    image.ImageZDMConfig().net, cond_dim=64))
+    prior = _init(image.ImageZDMNet(zcfg, z_hw), 1, device)
+    pstate, pema = _state(prior), trainer.ema_init(prior)
+    pstep = image.make_image_zdm_step(prior, ae, device=device)
+    labels = torch.arange(batch, device=device) % 10
+    rec["zdm_train_step_s"], _ = _step_times(lambda: pstep(
+        pstate, pema, {"image": x, "label": labels},
+        image.make_image_zdm_draws(zcfg, (batch,) + z_hw + (4,),
+                                   gen).to(device))[2], device)
+    noises = [torch.randn((batch,) + z_hw + (4,),
+                          generator=torch.Generator().manual_seed(6)),
+              noise]
+    y, rec["zdm_generate_s"] = _timed(lambda: image.image_zdm_generate(
+        prior, ae, batch, z_hw, hw, noises, render_steps=steps_n,
+        class_labels=np.arange(batch) % 10), device)
+    if y.shape != x.shape or not torch_finite(y):
+        raise AssertionError("image_zdm_generate: bad output")
+    rec["zdm_peak_gib"] = _peak_gib(device)
+    del ae, prior, pstate, pema
+
+    _peak_reset(device)
+    vq = _init(vqgan.VQGAN(vqgan.VQGANConfig()), 2, device)
+    disc = _init(vqgan.NLayerDiscriminator(), 3, device)
+    lpips = _init(vqgan.LPIPS(), 4, device)
+    gen_step, disc_step = vqgan.make_vqgan_steps(vq, disc, lpips,
+                                                 device=device)
+    gs, ds = _state(vq), _state(disc)
+    rec["vqgan_disc_step_s"], _ = _step_times(
+        lambda: disc_step(ds, {"image": x})[1], device)
+    rec["vqgan_gen_step_s"], m = _step_times(
+        lambda: gen_step(gs, {"image": x})[1], device)
+    rec["vqgan_peak_gib"] = _peak_gib(device)
+    del vq, disc, lpips, gs, ds
+    no_attention_kernels("the image track")
+    log(f"[flowae] {card} | image DiTo f8c4 (UNet 128/256/512) B {batch} x "
+        f"{size}^2: train step_s {rec['dito_train_step_s']:.4f} (peak "
+        f"{rec['dito_train_peak_gib']:.2f} GiB); {steps_n}-step decode "
+        f"{rec['decode_s']:.3f} s ({rec['decode_ms_per_step']:.2f} ms/step, "
+        f"peak {rec['decode_peak_gib']:.2f} GiB) | ImageZDM (10 classes) "
+        f"step_s {rec['zdm_train_step_s']:.4f}, CFG generation "
+        f"{rec['zdm_generate_s']:.3f} s (peak {rec['zdm_peak_gib']:.2f} "
+        f"GiB) | VQGAN + LPIPS gen step_s {rec['vqgan_gen_step_s']:.4f} "
+        f"(adaptive weight {m['vq/adaptive_w']:.4g}), disc step_s "
+        f"{rec['vqgan_disc_step_s']:.4f} (peak {rec['vqgan_peak_gib']:.2f} "
+        f"GiB) | K1 0, K2 0")
+    rec["cross"] = image_cross_check(device, cpu_size)
+    return rec
+
+
+def image_cross_check(device, size=32) -> dict:
+    """Card vs CPU at size^2, B 2, the same weights and draws: the image
+    DiTo's loss and every leaf's gradient and a 3-step decode; the
+    class-conditional prior's loss and gradients; the VQGAN generator
+    step's losses and weight (VQ indices equal) and the discriminator's
+    gradients."""
+    import torch
+
+    from minimax_speech_torch.data.image_folder import synthetic_images
+    from minimax_speech_torch.flowae import dito, fm, image, vqgan
+    hw = (size, size)
+    x = torch.as_tensor(synthetic_images(2, size, 471))
+    cfg = image.DiToImageConfig()
+    draws = dito.make_dito_draws(cfg, x.shape,
+                                 torch.Generator().manual_seed(472), 0.5)
+    zcfg = image.ImageZDMConfig(n_classes=10, net=dataclasses.replace(
+        image.ImageZDMConfig().net, cond_dim=64))
+    z_hw = (size // 8,) * 2
+    zdraws = image.ImageZDMDraws(
+        fm.make_fm_draws(zcfg.fm, (2,) + z_hw + (4,),
+                         torch.Generator().manual_seed(473)),
+        torch.tensor([True, False]))
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
+    labels = torch.tensor([3, 7])
+    runs = {}
+    for dev in ("cpu", device):
+        ae = _init(image.DiToImage(cfg, hw), 0, dev)
+        rec_l, kl, _ = ae.loss(x.to(dev), draws.to(dev), 0.5)
+        out = {"ae": (float(rec_l.detach()),
+                      _grads_of(ae, rec_l + 1e-4 * kl))}
+        with torch.no_grad():
+            mu = ae.encode(x.to(dev))[1]
+            z = image.normalize_latents(mu)
+        out["decode"] = image.dito_image_decode(ae, mu, hw, noise, n_steps=3)
+        prior = _init(image.ImageZDMNet(zcfg, z_hw), 1, dev)
+        lab = torch.where(zdraws.drop.to(dev), 10, labels.to(dev))
+        zl = fm.fm_loss(lambda a, t: prior(a, t, class_labels=lab), z,
+                        zcfg.fm, zdraws.fm.to(dev))
+        out["zdm"] = (float(zl.detach()), _grads_of(prior, zl))
+        vq = _init(vqgan.VQGAN(vqgan.VQGANConfig()), 2, dev)
+        disc = _init(vqgan.NLayerDiscriminator(), 3, dev)
+        lp = _init(vqgan.LPIPS(), 4, dev)
+        with torch.no_grad():
+            idx = vq(x.to(dev))[2].cpu()
+        gen_step, disc_step = vqgan.make_vqgan_steps(vq, disc, lp,
+                                                     device=dev)
+        seen = []
+        orig = vqgan.backward_and_update
+        vqgan.backward_and_update = lambda st, loss: seen.append(
+            orig(st, loss)) or seen[-1]
+        try:
+            _, dm = disc_step(_state(disc), {"image": x.to(dev)})
+            disc = _init(vqgan.NLayerDiscriminator(), 3, dev)
+            _, gm = vqgan.make_vqgan_steps(vq, disc, lp, device=dev)[0](
+                _state(vq), {"image": x.to(dev)})
+        finally:
+            vqgan.backward_and_update = orig
+        dn = [nm for nm, _ in disc.named_parameters()]
+        out["vq"] = (idx, {k: float(v) for k, v in gm.items()},
+                     float(dm["disc/loss"]),
+                     dict(zip(dn, (t.cpu() for t in seen[0]))))
+        runs[dev] = out
+    c, k = runs["cpu"], runs[device]
+    _rel("image DiTo loss", k["ae"][0], c["ae"][0], TRAIN_METRIC_RTOL)
+    _held_grads("image DiTo gradients", k["ae"][1], c["ae"][1])
+    e = _peak_err("image DiTo decode", k["decode"], c["decode"])
+    _rel("image ZDM loss", k["zdm"][0], c["zdm"][0], TRAIN_METRIC_RTOL)
+    _held_grads("image ZDM gradients", k["zdm"][1], c["zdm"][1])
+    if not torch.equal(k["vq"][0], c["vq"][0]):
+        raise AssertionError("VQGAN: the codebook indices differ")
+    for key, v in c["vq"][1].items():
+        _rel(f"VQGAN {key}", k["vq"][1][key], v, ADAPTIVE_WEIGHT_RTOL
+             if key in ("vq/adaptive_w", "vq/loss") else TRAIN_METRIC_RTOL)
+    _rel("VQGAN disc loss", k["vq"][2], c["vq"][2], TRAIN_METRIC_RTOL)
+    _held_grads("VQGAN discriminator gradients", k["vq"][3], c["vq"][3])
+    log(f"[flowae] image track card vs CPU at {size}^2: DiTo loss "
+        f"{k['ae'][0]:.6f} vs {c['ae'][0]:.6f}, 3-step decode {e:.2e} of its "
+        f"peak; VQ indices equal, adaptive weight "
+        f"{k['vq'][1]['vq/adaptive_w']:.6g} vs "
+        f"{c['vq'][1]['vq/adaptive_w']:.6g}")
+    return {"decode_err": e}
+
+
+def flowae_cli_phase(card: str, ae, device=None) -> dict:
+    """Phase 48: the four flowae CLIs in this process, each at its
+    default --device (cuda; `device` names another for a rehearsal):
+    train_flowae --synthetic --model dito, then --model zdm --ae_params;
+    dito_infer --ckpt (`ae`, a DiToConfig() DiTo, saved) on a written
+    wav; train_flowae_image --synthetic dito, then zdm --class_cond;
+    image_dito --sample. Checks the files each writes; K1, K2 0."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from minimax_speech_torch.cli import (dito_infer, image_dito,
+                                          train_flowae, train_flowae_image)
+    from minimax_speech_torch.cli.synthesize import write_wav
+    from minimax_speech_torch.utils import params_io
+    if importlib.util.find_spec("PIL") is None:
+        log("[flowae] PIL is not installed here: the CLIs run on synthetic "
+            "images and write their PNGs without it; the folder and tar "
+            "readers are held on the CPU by tests/test_torch_flowae_image.py")
+    dev = [] if device is None else ["--device", device]
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="flowae_", dir=repo / "build"))
+    times = {}
+    try:
+        reset_counts()
+
+        def run(name, main, argv, want):
+            t0 = time.perf_counter()
+            main(argv + dev)
+            times[name] = time.perf_counter() - t0
+            missing = [w for w in want if not (root / w).is_file()
+                       or (root / w).stat().st_size == 0]
+            if missing:
+                raise AssertionError(f"{name} wrote no {missing}")
+
+        audio = ["--synthetic", "--steps", "3", "--eval_every", "0",
+                 "--save_every", "2", "--max_clips", "8", "--eval_batches",
+                 "1", "--eval_n_steps", "4", "--n_vis", "1"]
+        run("train_flowae_dito", train_flowae.main,
+            ["--model", "dito", "--save_dir", str(root / "ae")] + audio,
+            ["ae/ae_params.npz", "ae/dito_metrics.jsonl", "ae/config.json",
+             "ae/cache/audio_gen/0.wav", "ae/ckpt/2/state.pt",
+             "ae/ckpt/3/state.pt"])
+        run("train_flowae_zdm", train_flowae.main,
+            ["--model", "zdm", "--save_dir", str(root / "zdm"),
+             "--ae_params", str(root / "ae" / "ae_params.npz")] + audio,
+            ["zdm/zdm_metrics.jsonl", "zdm/cache/audio_gen/0.wav",
+             "zdm/audio_samples/audio_zdm_generated_0_step_3.wav"])
+        params_io.save_params(str(root / "dito.npz"), ae)
+        # 2 s, or what the autoencoder's DiT was built for if shorter
+        n = min(2 * 24000, ae.renderer.n_tok * ae.cfg.renderer.patch)
+        write_wav(str(root / "in.wav"), speechlike(
+            np.random.default_rng(48), n), 24000)
+        run("dito_infer", dito_infer.main,
+            ["--wav", str(root / "in.wav"), "--ckpt", str(root / "dito.npz"),
+             "--out", str(root / "rec.wav"), "--latents_out",
+             str(root / "z.npy")], ["rec.wav", "z.npy"])
+        z = np.load(root / "z.npy")
+        if z.shape != (n // 1024 * 16, 32) or \
+                not np.isfinite(z).all():
+            raise AssertionError(f"dito_infer latents {z.shape}")
+        image = ["--synthetic", "--steps", "2", "--eval_every", "0",
+                 "--save_every", "0", "--max_images", "8", "--eval_n_steps",
+                 "4"]
+        run("train_flowae_image_dito", train_flowae_image.main,
+            ["--model", "dito", "--save_dir", str(root / "iae")] + image,
+            ["iae/ae_params.npz", "iae/recon_2.png", "iae/dito_metrics.jsonl"])
+        run("train_flowae_image_zdm", train_flowae_image.main,
+            ["--model", "zdm", "--class_cond", "--save_dir",
+             str(root / "izdm"), "--ae_params",
+             str(root / "iae" / "ae_params.npz")] + image,
+            ["izdm/zdm_params.npz", "izdm/samples_2.png"])
+        run("image_dito_sample", image_dito.main,
+            ["--ae_params", str(root / "iae" / "ae_params.npz"),
+             "--zdm_params", str(root / "izdm" / "zdm_params.npz"),
+             "--n_classes", "2", "--sample", "4", "--n_steps", "4",
+             "--output", str(root / "samples.png")], ["samples.png"])
+        png = (root / "samples.png").read_bytes()
+        if png[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("image_dito wrote no PNG")
+        no_attention_kernels("the flowae CLIs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[flowae] {card} | the CLIs at their default --device"
+        f"{'' if device is None else ' (' + device + ')'}: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in times.items()) + " | K1 0, K2 0")
+    return times
+
+
 def tf32_off():
     """fp32 matmuls and convolutions without TF32, in this process (the
     main one, or a rank of phases 32-33's gang)."""
@@ -5493,7 +6170,22 @@ def main() -> int:
     t0 = phase_time(43, t0)
     legacy = legacy_phase(card)
     torch.cuda.empty_cache()
-    phase_time(44, t0)
+    t0 = phase_time(44, t0)
+
+    # flowae: phases 45-48, each asserting K1 = K2 = 0
+    dito_rec, dito_ae = dito_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(45, t0)
+    zdm_rec = zdm_glpto_phase(card, dito_ae)
+    torch.cuda.empty_cache()
+    t0 = phase_time(46, t0)
+    image_rec = image_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(47, t0)
+    cli_times = flowae_cli_phase(card, dito_ae)
+    del dito_ae
+    torch.cuda.empty_cache()
+    phase_time(48, t0)
     record["launches_by_path"]["xvector_zero_shot"] = xvector["launches"]
     k2["launches_by_path"]["xvector_zero_shot"] = 0
     for rec in (record, k2):  # asserted 0 in each phase
@@ -5533,6 +6225,10 @@ def main() -> int:
     k2["at_legacy_train_shapes"] = legacy["k2"]
     k2["matcha_step_ms"] = matcha_train["step_ms"]
     k2["matcha_mas_ms"] = matcha_train["mas_ms"]
+    for rec in (record, k2):  # asserted 0 in phases 45-48
+        rec["launches_by_path"].update({p: 0 for p in FLOWAE_PATHS})
+    record["flowae"] = {"dito": dito_rec, "zdm_glpto": zdm_rec,
+                        "image": image_rec, "cli_s": cli_times}
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))

@@ -107,6 +107,21 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int,
     return out.reshape(lead + out.shape[-1:])
 
 
+def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """(..., T) -> (..., T + 2p), reflected at both ends as np.pad and
+    jnp.pad's mode="reflect" do: repeatedly where p >= T (F.pad takes
+    only p < T)."""
+    n = x.shape[-1]
+    if p < n:
+        lead = x.shape[:-1]
+        return F.pad(x.reshape(-1, 1, n), (p, p),
+                     mode="reflect").reshape(lead + (n + 2 * p,))
+    period = 2 * (n - 1)
+    idx = np.arange(-p, n + p) % period
+    idx = np.where(idx >= n, period - idx, idx)
+    return x[..., torch.as_tensor(idx, device=x.device)]
+
+
 def stft(x: torch.Tensor, n_fft: int, hop: int, win_length: int | None = None,
          pad: int | None = None) -> torch.Tensor:
     """(..., T) -> complex STFT (..., frames, 1 + n_fft//2): reflect-pad
@@ -118,7 +133,7 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, win_length: int | None = None,
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1])
     if p > 0:
-        flat = F.pad(flat, (p, p), mode="reflect")
+        flat = reflect_pad(flat, p)
     win = hann_window(win_length, x.dtype, x.device)
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2

@@ -197,7 +197,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
                                generator=generator)
-        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)) \
+                and mod.weight is not None:  # affine-free norms have none
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     return module

@@ -137,14 +137,28 @@ def test_flax_style_init_is_seeded():
     assert abs(float(w.detach().std()) - 64 ** -0.5) < 0.03
 
 
+FLOWAE_MODULES = tuple(
+    [f"minimax_speech_torch.flowae.{m}" for m in (
+        "fm", "dit", "consistency_unet", "dito", "trainer", "zdm", "glpto",
+        "evaluate", "image", "vqgan")]
+    + ["minimax_speech_torch.data.image_folder",
+       "minimax_speech_torch.data.webdataset"]
+    + [f"minimax_speech_torch.cli.{m}" for m in (
+        "train_flowae", "train_flowae_image", "dito_infer", "image_dito")])
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port loads no jax, flax or JAX
-    package module."""
+    package module; the walk reaches each of FLOWAE_MODULES."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import minimax_speech_torch as p\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        f"missing = set({FLOWAE_MODULES!r}) - names\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'minimax_speech_tpu')]\n"

@@ -174,7 +174,23 @@ def test_chip_smoke_imports_no_jax():
         "minimax_speech_torch.models.matcha_hifigan, "
         "minimax_speech_torch.infer.matcha_text, "
         "minimax_speech_torch.cli.matcha, "
-        "minimax_speech_torch.cli.train_matcha\n"
+        "minimax_speech_torch.cli.train_matcha, "
+        "minimax_speech_torch.flowae.fm, "
+        "minimax_speech_torch.flowae.dit, "
+        "minimax_speech_torch.flowae.consistency_unet, "
+        "minimax_speech_torch.flowae.dito, "
+        "minimax_speech_torch.flowae.trainer, "
+        "minimax_speech_torch.flowae.zdm, "
+        "minimax_speech_torch.flowae.glpto, "
+        "minimax_speech_torch.flowae.evaluate, "
+        "minimax_speech_torch.flowae.image, "
+        "minimax_speech_torch.flowae.vqgan, "
+        "minimax_speech_torch.data.image_folder, "
+        "minimax_speech_torch.data.webdataset, "
+        "minimax_speech_torch.cli.train_flowae, "
+        "minimax_speech_torch.cli.train_flowae_image, "
+        "minimax_speech_torch.cli.dito_infer, "
+        "minimax_speech_torch.cli.image_dito\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'minimax_speech_tpu')]\n"
