@@ -286,6 +286,17 @@ a line; any failure ends the run with a non-zero exit:
      dito then zdm --class_cond, image_dito --sample; the files each
      writes. Phases 45-48 launch neither K1 nor K2 (flowae's attention is
      plain torch at head dim 32), asserted per phase.
+ 49. export: a checkpoint directory of configs/default.yaml at random
+     weights (the LM at PATH_LM_LAYERS layers) written by
+     params_io.save_params, registry.write_manifest and verify_model_dir
+     on it, registry.load_model equal to the written weights, the
+     hub_tools card; then cli/export.main in this process with
+     --ckpt_dir, --buckets 64,128,256, --matcha and --serving (the
+     generated length capped at EXPORT_TOKENS), then again without
+     --serving: each stage's seconds per bucket, first call and second.
+     K1 560 launches per flow
+     bucket and 40 per Matcha bucket, 0 in the other stages, the serving
+     paths' launches counted, K2 0; K1's library in build/kernels/.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -5908,6 +5919,216 @@ def flowae_cli_phase(card: str, ae, device=None) -> dict:
     return times
 
 
+EXPORT_BUCKETS = (64, 128, 256)
+# --serving's generated length, as phase 17's warm_serving caps it
+EXPORT_TOKENS = 20
+# the stages export runs, each counted where it is entered first
+EXPORT_STAGES = ("s3", "flow", "decode", "llm", "serving", "matcha",
+                 "vocoder")
+
+
+class StageCounts:
+    """While open: per call of each wrapped stage entered outside any
+    other wrapped stage, K1's and K2's launches, by stage label (the
+    seconds are export's own record)."""
+
+    def __init__(self):
+        self.calls, self.depth, self.undo = {}, 0, []
+
+    def wrap(self, owner, name: str, label: str):
+        real = getattr(owner, name)
+
+        def run(*a, **kw):
+            self.depth += 1
+            k2_0, k1_0 = read_counts()
+            try:
+                out = real(*a, **kw)
+            finally:
+                self.depth -= 1
+            if self.depth == 0:
+                k2, k1 = read_counts()
+                self.calls.setdefault(label, []).append({
+                    "k1": k1 - k1_0, "k2": sum(k2.values()) - sum(
+                        k2_0.values())})
+            return out
+        setattr(owner, name, run)
+        self.undo.append((owner, name, real))
+
+    def close(self):
+        for owner, name, real in reversed(self.undo):
+            setattr(owner, name, real)
+
+
+def export_phase(card: str, device="cuda", config="configs/default.yaml",
+                 buckets=EXPORT_BUCKETS, lm_layers: int = PATH_LM_LAYERS,
+                 n_tokens: int = EXPORT_TOKENS) -> dict:
+    """Phase 49: cli/export.py at the width of `config` (the LM at
+    lm_layers layers), from a checkpoint directory of random weights
+    (seed 0) written by params_io.save_params, hashed by
+    registry.write_manifest, verified, read back by registry.load_model
+    and carded by hub_tools; then export.main in this process with
+    --ckpt_dir, --buckets, --matcha and --serving (the generated length
+    capped at n_tokens as fixed_length does), and a second time without
+    --serving: each stage's first-call and second-call seconds per
+    bucket. K1 launched 560 times
+    per flow bucket and 40 per Matcha bucket (phases 1 and 42's counts),
+    never by the other stages, the serving paths' launches counted, K2
+    never; K1's library in build/kernels/ afterwards. Returns the
+    record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch import config as cfg_lib
+    from minimax_speech_torch.cli import export, hub_tools
+    from minimax_speech_torch.infer import warmup
+    from minimax_speech_torch.infer.pipeline import TTSPipeline
+    from minimax_speech_torch.kernels import build
+    from minimax_speech_torch.models import flow as flow_mod
+    from minimax_speech_torch.models import llm as llm_mod
+    from minimax_speech_torch.models import matcha as matcha_mod
+    from minimax_speech_torch.models.matcha_hifigan import MatchaHiFiGAN
+    from minimax_speech_torch.models.s3tokenizer import S3TokenizerV2
+    from minimax_speech_torch.utils import params_io, registry
+
+    on_card = device == "cuda"
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="export_", dir=repo / "build"))
+    overrides = [f"model.lm.qwen.n_layers={lm_layers}",
+                 f"model.max_speech_tokens={n_tokens}",
+                 f"model.min_token_text_ratio={n_tokens / TEXT_LEN}",
+                 f"model.max_token_text_ratio={n_tokens / TEXT_LEN}"]
+    cfg = cfg_lib.load_tts_config(repo / config, overrides)
+    mcfg = matcha_mod.MatchaConfig()
+    want = {"flow": attn_calls_per_step(cfg.flow.unet)
+            * cfg.flow.n_timesteps if on_card else 0,
+            "matcha": attn_calls_per_step(mcfg.unet) * mcfg.n_timesteps
+            if on_card else 0}
+    try:
+        ckpt = root / "ckpt"
+        ckpt.mkdir()
+        t0 = time.perf_counter()
+        pipe = TTSPipeline.from_random(cfg, seed=0, device=device)
+        files = dict(zip(("llm", "flow", "codec", "s3"),
+                         pipe.models().values()))
+        for name, module in files.items():
+            params_io.save_params(str(ckpt / f"{name}.npz"), module)
+        manifest = registry.write_manifest(ckpt)
+        problems = registry.verify_model_dir(ckpt)
+        equal = {}
+        for name, module in files.items():
+            got = params_io._flatten(registry.load_model(str(ckpt), name))
+            ref = params_io._flatten(params_io.to_flax_params(module))
+            equal[name] = got.keys() == ref.keys() and all(
+                np.array_equal(got[k], a) for k, a in ref.items())
+        del pipe, files
+        if on_card:
+            torch.cuda.empty_cache()
+        hub_tools.main(["card", "--model_dir", str(ckpt)])
+        card_text = (ckpt / "README.md").read_text()
+        mb = sum(p.stat().st_size for p in ckpt.glob("*.npz")) / 2**20
+        log(f"[export] {card} | checkpoint dir ({config}, LM at {lm_layers} "
+            f"layers, seed 0): {sorted(manifest['files'])} {mb:.1f} MiB in "
+            f"{time.perf_counter() - t0:.1f} s | verify_model_dir "
+            f"{problems} | load_model equal to the written weights {equal} "
+            f"| hub card {len(card_text)} chars")
+        if problems or not all(equal.values()) or \
+                sorted(manifest["files"]) != ["codec.npz", "flow.npz",
+                                              "llm.npz", "s3.npz"] or \
+                "minimax_speech_torch" not in card_text:
+            raise AssertionError("export's checkpoint directory failed")
+
+        argv = ["--config", str(repo / config), "--ckpt_dir", str(ckpt),
+                "--buckets", ",".join(map(str, buckets)), "--device", device,
+                *sum((["--override", o] for o in overrides), [])]
+        runs = []
+        # the second call again without --serving: its subject is each
+        # stage's second-call seconds
+        for call, warm in (("first", True), ("second", False)):
+            flags = ["--matcha", "--serving"] if warm else ["--matcha"]
+            counts = StageCounts()
+            for owner, name, label in (
+                    (S3TokenizerV2, "forward", "s3"),
+                    (flow_mod, "flow_inference", "flow"),
+                    (TTSPipeline, "decode", "decode"),
+                    (llm_mod, "generate", "llm"),
+                    (warmup, "warm_serving", "serving"),
+                    (matcha_mod, "matcha_synthesise", "matcha"),
+                    (MatchaHiFiGAN, "forward", "vocoder")):
+                counts.wrap(owner, name, label)
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                rec = export.main(argv + flags)
+            finally:
+                counts.close()
+            secs = time.perf_counter() - t0
+            k2, k1 = read_counts()
+            c = counts.calls
+            k1_by = {s: [x["k1"] for x in c.get(s, [])]
+                     for s in EXPORT_STAGES}
+            log(f"[export] {card} | export.main ({call} call) over buckets "
+                f"{list(buckets)}, {' '.join(flags)}: "
+                f"{secs:.2f} s | K1 per call {k1_by} (expected "
+                f"{want['flow']} per flow bucket, {want['matcha']} per Matcha "
+                f"bucket), total {k1}; K2 {k2}")
+            stage_s = export_seconds(rec)
+            log(f"[export] {call} call, seconds per bucket (export's "
+                f"record): " + "; ".join(f"{s} {[round(x, 4) for x in v]}"
+                                         for s, v in stage_s.items()))
+            for sched, t in rec["serving"].items():
+                log(f"[export] {call} call, warm_serving {sched}: "
+                    f"{ {k: round(v, 3) for k, v in t.items()} }")
+            n = len(buckets)
+            lib = build.library_path("flash_attention")
+            if any(len(c.get(s, [])) != n for s in
+                   ("s3", "flow", "decode", "llm", "matcha", "vocoder")) \
+                    or k1_by["flow"] != [want["flow"]] * n \
+                    or k1_by["matcha"] != [want["matcha"]] * n \
+                    or any(k1_by[s] != [0] * n for s in
+                           ("s3", "decode", "llm", "vocoder")) \
+                    or len(c.get("serving", [])) != (2 if warm else 0) \
+                    or (on_card and warm
+                        and not all(x["k1"] > 0 for x in c["serving"])) \
+                    or k1 != sum(x["k1"] for v in c.values() for x in v) \
+                    or sum(k2.values()) or any(
+                        x["k2"] for v in c.values() for x in v) \
+                    or (on_card and (not lib.exists() or rec["kernels"]
+                                     ["flash_attention"]["path"] != str(lib))):
+                raise AssertionError(f"export ({call} call): stage calls "
+                                     f"{ {s: len(v) for s, v in c.items()} }, "
+                                     f"K1 {k1_by}, K2 {k2}, library {lib}")
+            runs.append({"seconds": stage_s, "calls": c, "record": rec})
+        log(f"[export] {card} | K1's library {lib} (exists {lib.exists()}, "
+            f"built by export {[r['record']['kernels'] for r in runs]})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first, second = runs
+    return {"launches": {
+        "export_buckets": sum(x["k1"] for s in ("s3", "flow", "decode",
+                                                "llm")
+                              for x in first["calls"].get(s, [])),
+        "export_matcha": sum(x["k1"] for s in ("matcha", "vocoder")
+                             for x in first["calls"].get(s, [])),
+        "export_serving": sum(x["k1"] for x in first["calls"].get(
+            "serving", []))},
+        "seconds": {call: {s: [round(x, 4) for x in v]
+                           for s, v in r["seconds"].items()}
+                    for call, r in (("first", first), ("second", second))}}
+
+
+def export_seconds(rec: dict) -> dict:
+    """Each stage's seconds per bucket, in bucket order, from the record
+    export.main returns."""
+    out = {s: [t[f"{s}_s"] for t in rec["buckets"].values()]
+           for s in ("s3", "flow", "decode", "llm")}
+    out["matcha"] = [t["synthesise_s"] for t in rec["matcha"].values()]
+    out["vocoder"] = [t["vocoder_s"] for t in rec["matcha"].values()]
+    return out
+
+
 def tf32_off():
     """fp32 matmuls and convolutions without TF32, in this process (the
     main one, or a rank of phases 32-33's gang)."""
@@ -6185,7 +6406,12 @@ def main() -> int:
     cli_times = flowae_cli_phase(card, dito_ae)
     del dito_ae
     torch.cuda.empty_cache()
-    phase_time(48, t0)
+    t0 = phase_time(48, t0)
+
+    # export: phase 49
+    export_rec = export_phase(card)
+    torch.cuda.empty_cache()
+    phase_time(49, t0)
     record["launches_by_path"]["xvector_zero_shot"] = xvector["launches"]
     k2["launches_by_path"]["xvector_zero_shot"] = 0
     for rec in (record, k2):  # asserted 0 in each phase
@@ -6229,6 +6455,9 @@ def main() -> int:
         rec["launches_by_path"].update({p: 0 for p in FLOWAE_PATHS})
     record["flowae"] = {"dito": dito_rec, "zdm_glpto": zdm_rec,
                         "image": image_rec, "cli_s": cli_times}
+    record["launches_by_path"].update(export_rec["launches"])
+    k2["launches_by_path"].update({p: 0 for p in export_rec["launches"]})
+    record["export_s"] = export_rec["seconds"]
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))

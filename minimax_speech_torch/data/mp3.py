@@ -59,6 +59,10 @@ def _lib():
     return lib
 
 
+def mpg123_available() -> bool:
+    return _lib() is not None
+
+
 def decode_mp3(path: str) -> tuple[np.ndarray, int]:
     """Decode an mp3 file to (mono float32 samples, sample_rate)."""
     lib = _lib()

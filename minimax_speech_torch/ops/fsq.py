@@ -1,4 +1,4 @@
-"""Finite Scalar Quantization encode: 8 dims x 3 levels = 6561 codes.
+"""Finite Scalar Quantization: 8 dims x 3 levels = 6561 codes.
 
 Port of minimax_speech_tpu/ops/fsq.py.
 """
@@ -21,3 +21,18 @@ def fsq_encode(h: torch.Tensor) -> torch.Tensor:
     powers = torch.tensor([FSQ_LEVEL ** i for i in range(FSQ_DIM)],
                           dtype=torch.int32, device=h.device)
     return (digits * powers).sum(dim=-1, dtype=torch.int32)
+
+
+def fsq_digits(codes: torch.Tensor) -> torch.Tensor:
+    """(...,) int codes -> (..., 8) digits in {0, 1, 2} (little-endian
+    base 3), in the codes' dtype."""
+    powers = FSQ_LEVEL ** torch.arange(FSQ_DIM, dtype=codes.dtype,
+                                       device=codes.device)
+    return torch.div(codes[..., None], powers, rounding_mode="floor") \
+        % FSQ_LEVEL
+
+
+def fsq_centers(codes: torch.Tensor) -> torch.Tensor:
+    """(...,) int codes -> (..., 8) float32 quantization centers in
+    {-1, 0, 1}."""
+    return (fsq_digits(codes) - 1).float()

@@ -13,6 +13,11 @@ def make_non_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return pos[None, :] < lengths[:, None]
 
 
+def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """True on padded positions."""
+    return ~make_non_pad_mask(lengths, max_len)
+
+
 def subsequent_chunk_mask(size: int, chunk_size: int,
                           num_left_chunks: int = -1,
                           device=None) -> torch.Tensor:

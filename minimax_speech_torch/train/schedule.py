@@ -88,6 +88,10 @@ def cosine_annealing(lr: float, warmup_steps: int, total_steps: int,
     return _join(_linear(0.0, lr, warmup_steps), decay, warmup_steps)
 
 
+def constant(lr: float) -> Schedule:
+    return lambda step: lr
+
+
 def _with_warmup(lr: float, warmup_steps: int, after: Schedule) -> Schedule:
     """Linear 0 -> lr, then `after`, which counts from the end of warmup."""
     if warmup_steps <= 0:
@@ -109,6 +113,18 @@ def squareroot_annealing(lr: float, warmup_steps: int, max_steps: int,
         frac = min(max((max_steps - step) / max_steps, 0.0), 1.0)
         return max(lr * math.sqrt(frac), min_lr)
     return _with_warmup(lr, warmup_steps, fn)
+
+
+def squareroot_constant(lr_scale: float, constant_steps: int,
+                        min_lr: float = 0.0) -> Schedule:
+    """lr_scale / sqrt(constant_steps) held through constant_steps, then
+    lr_scale / sqrt(step)."""
+    def fn(step):
+        s = max(float(step), 1.0)
+        lr = lr_scale / (constant_steps ** 0.5 if step <= constant_steps
+                         else math.sqrt(s))
+        return max(lr, min_lr)
+    return fn
 
 
 def noam_annealing(lr: float, warmup_steps: int, d_model: int = 512,

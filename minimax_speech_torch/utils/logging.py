@@ -2,7 +2,9 @@
 
 Port of minimax_speech_tpu/utils/logging.py for one process: every
 `log_interval`-th step (or a forced call) appends one JSON row to
-`<directory>/<name>_metrics.jsonl` and prints a short line.
+`<directory>/<name>_metrics.jsonl` and prints a short line. `profile`
+traces a region with torch.profiler (the JAX package's takes a
+jax.profiler trace).
 """
 from __future__ import annotations
 
@@ -54,3 +56,19 @@ class Timer:
         out = {f"time/{k}": v for k, v in self.totals.items()}
         self.totals = {}
         return out
+
+
+@contextlib.contextmanager
+def profile(log_dir: str):
+    """torch.profiler trace around a code region, the host's and (where
+    there is a GPU) the device's activities, written into `log_dir` as a
+    TensorBoard / Chrome trace (`*.pt.trace.json`)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                str(log_dir))):
+        yield

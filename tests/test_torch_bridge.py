@@ -145,11 +145,18 @@ FLOWAE_MODULES = tuple(
        "minimax_speech_torch.data.webdataset"]
     + [f"minimax_speech_torch.cli.{m}" for m in (
         "train_flowae", "train_flowae_image", "dito_infer", "image_dito")])
+# the host tools and export, the last modules ported
+HOST_TOOL_MODULES = tuple(
+    [f"minimax_speech_torch.cli.{m}" for m in (
+        "export", "hub_tools", "download_pretrained", "download_dataset")]
+    + [f"minimax_speech_torch.utils.{m}" for m in ("registry",
+                                                   "preference")])
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port loads no jax, flax or JAX
-    package module; the walk reaches each of FLOWAE_MODULES."""
+    package module; the walk reaches each of FLOWAE_MODULES and
+    HOST_TOOL_MODULES."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import minimax_speech_torch as p\n"
@@ -157,7 +164,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "    names.add(m.name)\n"
-        f"missing = set({FLOWAE_MODULES!r}) - names\n"
+        f"missing = set({FLOWAE_MODULES + HOST_TOOL_MODULES!r}) - names\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
