@@ -66,7 +66,8 @@ a line; any failure ends the run with a non-zero exit:
      limit, and the streamed PCM of the card against the CPU's;
  13. cli/synthesize.main at full width (PATH_LM_LAYERS LM layers),
      unfused and --stream, each writing a wav;
- 15. serving at full width, phase 4's LM: a BatchSynthesizer call of 4
+ 15. serving at full width, phase 4's LM cut to PATH_LM_LAYERS
+     layers: a BatchSynthesizer call of 4
      requests with ragged prompts (2-3.5 s) and texts (50-100 tokens),
      then the longest alone; tokens, lengths, K1's launches per call
      (560, at (2 x 4, ...) with ragged key lengths) and audio seconds
@@ -297,6 +298,28 @@ a line; any failure ends the run with a non-zero exit:
      K1 560 launches per flow
      bucket and 40 per Matcha bucket, 0 in the other stages, the serving
      paths' launches counted, K2 0; K1's library in build/kernels/.
+ 50. the Qwen2 text tokenizer: a seeded synthetic Qwen2 directory at
+     Qwen2's size (write_qwen2_dir: 151,643 regular ids, <|endoftext|>,
+     <|im_start|>, <|im_end|> at 151643-151645) read by QwenTokenizer
+     with `regex` hidden (the stdlib splitter): load seconds, encode
+     chars/s on ~2k characters each of English, Chinese and mixed text
+     with special tokens, the ids of QWEN_GOLDEN_TEXTS against
+     transformers' (QWEN_GOLDEN); then at the widths of
+     configs/default.yaml (W8A8 LM in bf16 at PATH_LM_LAYERS layers)
+     TTS(pipeline=..., tokenizer_path=dir) zero-shot and
+     cli/synthesize.py --tokenizer_path dir in a subprocess: the LM's
+     text ids above 256 and under 151,936, K1 560 launches per
+     utterance, K2 0.
+
+Phases 1-4, 6 and 7 run alone on the card: the kernels' times and the
+main paths' launches in the kernels' record come from them. The other
+phases then run in three streams at once (STREAMS: synthesis 5, 10-18,
+39-44, 49, 50; LM training 8, 9, 28-34; flow and GAN 19-27, 35-38,
+45-48), this process and two workers, so their times include the
+others' load on the card and the host; each worker's log is printed
+whole when it ends. Kernel launches are counted per process. The phases
+whose device memory peaks above ~15 GiB (28, 32-33, 35-36, 38, 47) take
+a lock (`heavy`), so that no two of them share the card's 80 GB.
 
 The line before the last holds the kernels' record (JSON); the last line
 is {"ok": true, "device": {...}}.
@@ -308,6 +331,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -326,8 +350,9 @@ SERVE_SPECS = [(2.0, 6), (2.5, 8), (3.0, 10), (3.5, 12), (2.2, 7), (2.8, 9)]
 PROMPT_TEXT_LEN = 4
 PROMPT_SECONDS = 3.0
 TIMED_RUNS = 2
-# the LM depth of the phases whose subject is the flow, HiFT or a CLI's
-# plumbing, not the LM's decode (11, 13, 24 and 25): full width, 6 of the
+# the LM depth of the phases whose subject is the flow, HiFT, serving or
+# a CLI's plumbing, not the LM's decode (11, 13, 15-17, 24, 25 and 50):
+# full width, 6 of the
 # 24 layers, since the host-bound decode costs about 64 ms a token per
 # 24 layers
 PATH_LM_LAYERS = 6
@@ -6129,12 +6154,849 @@ def export_seconds(rec: dict) -> dict:
     return out
 
 
+# phase 50: the Qwen2 text tokenizer at Qwen2's size
+QWEN_REGULAR = 151643   # Qwen2's regular ids: 256 bytes + 151,387 merges
+QWEN_ADDED = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")  # 151643-5
+QWEN_VOCAB = 151936     # the LM's text embedding (configs/default.yaml)
+# the words whose merges come first in the synthetic table (each with and
+# without a leading space and capitalised), then Chinese characters
+QWEN_WORDS = (
+    "the of and to in is you that it he was for on are as with his they "
+    "at be this have from or one had by word but not what all were we "
+    "when your can said there use an each which she do how their if will "
+    "up other about out many then them these so some her would make like "
+    "him into time has look two more write go see number no way could "
+    "people my than first water been call who its now find long down day "
+    "did get come made may part hello world test speech voice text token "
+    "model breath laughter quick brown fox jumps over lazy dog").split()
+QWEN_HAN = ("你好世界今天天气很不错我们一起去公园散步吧这是一个语音合成的测试"
+            "文本中文和英文混合")
+QWEN_PUNCT = (".", ",", "!", "?", " (", ")", ".\n", ",\n", "\n\n", "  ",
+              "，", "。")
+# the strings whose ids phase 50 hashes; QWEN_GOLDEN is the hash of the
+# ids transformers' AutoTokenizer gives for them on qwen2_table(), with
+# the TTS special tokens added (tests/test_torch_qwen_tokenizer.py holds
+# it to the JAX package's QwenTokenizer)
+QWEN_GOLDEN_TEXTS = [
+    "Hello world, this is a test of the speech model.",
+    "It's the quick brown fox; THEY'RE over the lazy dog, I'M sure.",
+    "你好世界，今天天气很不错！我们一起去公园散步吧。",
+    "<|im_start|>Hello<|im_end|> [breath] voice<|endofprompt|>文本",
+    "12345 numbers 3.14 and 1,000,000", "  spaces \t tabs\r\n\r\nlines  ",
+    "café naı̈ve \U0001f642\U0001f44d\U0001f3fd こんにちは",
+    "[laughter]ha[laughter] <strong>loud</strong> [mm][sigh]"]
+QWEN_GOLDEN = ("0d35be5e3a7936fb39d6742d5bb4274c"
+               "abb8297f0e39cd57255ee9791c0ec73d")
+QWEN_TTS_TEXT = ("Hello world, this is a test of the speech model with the "
+                 "quick brown fox.")
+QWEN_CLI_TEXT = "你好世界，今天天气很不错，我们一起去公园散步吧。"
+QWEN_TIMING_CHARS = 2000
+
+
+def qwen2_table(n_regular: int = QWEN_REGULAR, seed: int = 0):
+    """A seeded Qwen2-sized byte-level BPE table: the 256 byte tokens
+    (id = byte), then merges to n_regular ids. Each merge joins two
+    tokens already in the table into one it does not hold yet: first the
+    chains that spell QWEN_WORDS, QWEN_HAN's characters and pairs, 3,000
+    other CJK characters and QWEN_PUNCT, in a seeded order; then random
+    pairs of tokens of 16 characters or fewer. Returns (vocab, merges)."""
+    import random
+
+    from minimax_speech_torch.infer.qwen_tokenizer import bytes_to_unicode
+
+    rnd = random.Random(seed)
+    enc = bytes_to_unicode()
+    vocab = {enc[b]: b for b in range(256)}
+    merges = []
+
+    def add(a, b):
+        if a + b not in vocab and len(vocab) < n_regular:
+            vocab[a + b] = len(vocab)
+            merges.append((a, b))
+        return a + b
+
+    words = [v for w in QWEN_WORDS for v in (w, " " + w, w.capitalize(),
+                                             " " + w.capitalize())]
+    words += list(QWEN_HAN) + [QWEN_HAN[i: i + 2]
+                               for i in range(len(QWEN_HAN) - 1)]
+    words += [chr(0x4E00 + rnd.randrange(0x5000)) for _ in range(3000)]
+    words += list(QWEN_PUNCT)
+    rnd.shuffle(words)
+    for w in words:
+        chars = [enc[b] for b in w.encode("utf-8")]
+        cur = chars[0]
+        for ch in chars[1:]:
+            cur = add(cur, ch)
+    toks = list(vocab)
+    while len(vocab) < n_regular:
+        a, b = toks[rnd.randrange(len(toks))], toks[rnd.randrange(len(toks))]
+        if len(a) + len(b) <= 16 and a + b not in vocab:
+            toks.append(add(a, b))
+    return vocab, merges
+
+
+def write_qwen2_dir(root, n_regular: int = QWEN_REGULAR, seed: int = 0,
+                    layout: str = "tokenizer.json") -> Path:
+    """A Qwen2 tokenizer directory of qwen2_table(n_regular, seed), as
+    Qwen2's is laid out: QWEN_ADDED at the next ids (special), and
+    tokenizer_config.json with Qwen2's fields; the table in tokenizer.json
+    (layout "tokenizer.json") or in vocab.json + merges.txt ("vocab")."""
+    from minimax_speech_torch.infer.qwen_tokenizer import QWEN2_PAT
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    vocab, merges = qwen2_table(n_regular, seed)
+    added = [{"id": len(vocab) + i, "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, t in enumerate(QWEN_ADDED)]
+    (root / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "Qwen2Tokenizer",
+        "added_tokens_decoder": {str(a["id"]): {
+            k: v for k, v in a.items() if k != "id"} for a in added},
+        "bos_token": None, "eos_token": QWEN_ADDED[0],
+        "pad_token": QWEN_ADDED[0], "unk_token": None,
+        "additional_special_tokens": list(QWEN_ADDED[1:]),
+        "clean_up_tokenization_spaces": False, "errors": "replace",
+        "model_max_length": 32768, "split_special_tokens": False},
+        indent=1))
+    if layout == "vocab":
+        (root / "vocab.json").write_text(json.dumps(vocab,
+                                                    ensure_ascii=False))
+        (root / "merges.txt").write_text(
+            "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+        return root
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": False, "use_regex": False}
+    (root / "tokenizer.json").write_text(json.dumps({
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PAT},
+             "behavior": "Isolated", "invert": False}, byte_level]},
+        "post_processor": byte_level, "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": False, "vocab": vocab,
+                  "merges": [list(m) for m in merges]}},
+        ensure_ascii=False))
+    return root
+
+
+def qwen_ids_digest(encode, texts=QWEN_GOLDEN_TEXTS) -> str:
+    """sha256 of the ids of `texts`, as JSON."""
+    import hashlib
+    return hashlib.sha256(json.dumps([list(map(int, encode(t)))
+                                      for t in texts]).encode()).hexdigest()
+
+
+def qwen_timing_texts(n: int = QWEN_TIMING_CHARS, seed: int = 50) -> dict:
+    """~n characters each of English, Chinese and mixed text with the TTS
+    special tokens, seeded."""
+    import random
+
+    from minimax_speech_torch.infer.qwen_tokenizer import SPECIAL_TOKENS
+
+    rnd = random.Random(seed)
+
+    def fill(draw, sep=""):
+        out = ""
+        while len(out) < n:
+            out += draw() + sep
+        return out[:n]
+    han = [chr(0x4E00 + rnd.randrange(0x5000)) for _ in range(200)] \
+        + list(QWEN_HAN)
+    return {
+        "english": fill(lambda: rnd.choice(QWEN_WORDS) + rnd.choice(
+            ["", "", "", ",", "."]), " "),
+        "chinese": fill(lambda: rnd.choice(han) + rnd.choice(
+            [""] * 9 + ["，", "。"])),
+        "mixed": fill(lambda: rnd.choice([
+            rnd.choice(QWEN_WORDS).capitalize() + " ", rnd.choice(han),
+            rnd.choice(SPECIAL_TOKENS), str(rnd.randrange(1000)), "'s ",
+            "\n"]))}
+
+
+@contextlib.contextmanager
+def text_ids_seen():
+    """While open, the text ids (before the LM's clamp) of every plan
+    SpeechLM.embed_plan embeds, as one list of ints."""
+    from minimax_speech_torch.models import llm as llm_mod
+
+    seen, real = [], llm_mod.SpeechLM.embed_plan
+
+    def embed_plan(self, src_type, tok_id, spk_emb):
+        seen.extend(tok_id[src_type == llm_mod.SRC_TEXT].tolist())
+        return real(self, src_type, tok_id, spk_emb)
+    llm_mod.SpeechLM.embed_plan = embed_plan
+    try:
+        yield seen
+    finally:
+        llm_mod.SpeechLM.embed_plan = real
+
+
+def check_text_ids(ids, what: str) -> str:
+    """A line on the LM's text ids; raises unless some are above 256 (the
+    byte tokenizer's last) and all in [0, QWEN_VOCAB)."""
+    line = (f"the LM's text ids {len(ids)}, {sum(i > 256 for i in ids)} "
+            f"above 256, range {min(ids, default=None)}-"
+            f"{max(ids, default=None)}")
+    if not ids or max(ids) <= 256 or max(ids) >= QWEN_VOCAB or min(ids) < 0:
+        raise AssertionError(f"{what}: {line}; want some above 256, all "
+                             f"under {QWEN_VOCAB}")
+    return line
+
+
+SYNTH_WORKER = "--synth-worker"
+
+
+def synth_worker(argv) -> int:
+    """Phase 50's subprocess, `python chip_smoke.py --synth-worker <cli/
+    synthesize.py arguments>`: cli/synthesize.main with K1's and K2's
+    launches and the LM's text ids printed at its end."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from minimax_speech_torch.cli import synthesize as synth_cli
+
+    reset_counts()
+    with text_ids_seen() as ids:
+        audio = synth_cli.main(argv)
+    k2, k1 = read_counts()
+    print(json.dumps({"synth_worker": {
+        "k1": k1, "k2": k2, "samples": len(audio),
+        "finite": bool(np.isfinite(audio).all()), "ids": ids}}), flush=True)
+    return 0
+
+
+def qwen_text_phase(card: str, device="cuda", config="configs/default.yaml",
+                    lm_layers: int = PATH_LM_LAYERS, max_tokens: int = 100,
+                    n_regular: int = QWEN_REGULAR, golden=True) -> dict:
+    """Phase 50: a synthetic Qwen2 directory at Qwen2's size
+    (write_qwen2_dir) read by QwenTokenizer on the standard-library
+    path (`regex` hidden): load seconds, encode chars/s on
+    qwen_timing_texts, the ids of QWEN_GOLDEN_TEXTS against QWEN_GOLDEN
+    (golden=False skips it, for a smaller table); then at the widths of
+    `config` (W8A8 LM in bf16 at lm_layers, random weights, seed 0)
+    TTS(pipeline=..., tokenizer_path=dir).inference_zero_shot and
+    cli/synthesize.py --tokenizer_path dir in a subprocess: the LM's text
+    ids above 256 and under QWEN_VOCAB, K1 560 launches per utterance, K2
+    0. Returns {"launches": {path: K1 per utterance}, "load_s",
+    "chars_per_s"}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch import config as cfg_lib
+    from minimax_speech_torch.infer import qwen_tokenizer as qt
+    from minimax_speech_torch.infer.api import TTS
+    from minimax_speech_torch.infer.pipeline import TTSPipeline
+
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="qwen2_", dir=repo / "build"))
+    try:
+        t0 = time.perf_counter()
+        d = write_qwen2_dir(root / "tok", n_regular)
+        write_s = time.perf_counter() - t0
+        hidden = sys.modules.get("regex")
+        sys.modules["regex"] = None  # the card's machine has no regex
+        try:
+            t0 = time.perf_counter()
+            tok = qt.QwenTokenizer(str(d))
+            load_s = time.perf_counter() - t0
+            if tok._split is not qt.split_qwen2:
+                raise AssertionError("the stdlib splitter was not taken")
+            rate = {}
+            for name, text in qwen_timing_texts().items():
+                t0 = time.perf_counter()
+                ids = tok.encode(text)
+                rate[name] = len(text) / (time.perf_counter() - t0)
+                if name != "mixed" and tok.decode(ids) != text:
+                    raise AssertionError(f"{name}: decode(encode) differs")
+            digest = qwen_ids_digest(tok.encode)
+        finally:
+            if hidden is None:
+                sys.modules.pop("regex", None)
+            else:
+                sys.modules["regex"] = hidden
+        log(f"[qwen] {card} | synthetic Qwen2 table: {len(tok.vocab)} "
+            f"regular ids, {len(tok.added)} added, the last id "
+            f"{tok.vocab_size - 1}; tokenizer.json written in {write_s:.2f} "
+            f"s, read in {load_s:.2f} s; encode on the stdlib splitter, "
+            f"first pass, chars/s "
+            f"{ {k: round(v) for k, v in rate.items()} }; golden ids "
+            f"{digest[:16]} (want {QWEN_GOLDEN[:16]})")
+        if golden and digest != QWEN_GOLDEN:
+            raise AssertionError("the ids of QWEN_GOLDEN_TEXTS differ from "
+                                 "transformers'")
+
+        cfg = cfg_lib.load_tts_config(repo / config, [
+            "model.lm.qwen.quantized=true",
+            f"model.lm.qwen.n_layers={lm_layers}",
+            f"model.max_speech_tokens={max_tokens}"])
+        per_utt = attn_calls_per_step(cfg.flow.unet) * cfg.flow.n_timesteps
+        want = per_utt if torch.device(device).type == "cuda" else 0
+        pipe = TTSPipeline.from_random(cfg, seed=0, device=device)
+        pipe.lm.to(torch.bfloat16)
+        tts = TTS(pipeline=pipe, tokenizer_path=str(d))
+        if not isinstance(tts.frontend.tokenizer, qt.QwenTokenizer):
+            raise AssertionError("TTS(tokenizer_path=dir) took "
+                                 f"{type(tts.frontend.tokenizer)}")
+        prompt = speechlike(np.random.default_rng(50),
+                            int(PROMPT_SECONDS * 16000), 16000)
+        pieces = tts.frontend.text_normalize(QWEN_TTS_TEXT)
+        cli_pieces = len(tts.frontend.text_normalize(QWEN_CLI_TEXT))
+        reset_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        with text_ids_seen() as ids:
+            wav = np.concatenate([o["tts_speech"] for o in
+                                  tts.inference_zero_shot(
+                                      QWEN_TTS_TEXT, "a reference", prompt)],
+                                 axis=1)
+        sync(device)
+        total_s = time.perf_counter() - t0
+        k2, k1 = read_counts()
+        log(f"[qwen] {card} | TTS(pipeline, tokenizer_path) zero-shot, W8A8 "
+            f"LM in bf16 at {lm_layers} layers: {len(pieces)} piece(s), "
+            f"{wav.shape[1] / 24000:.2f} s of audio in {total_s:.2f} s; "
+            f"{check_text_ids(ids, 'TTS zero-shot')}; K1 launches {k1} "
+            f"(expected {want * len(pieces)}), K2 {k2}")
+        if k1 != want * len(pieces) or sum(k2.values()) \
+                or wav.shape[1] == 0 or not np.isfinite(wav).all():
+            raise AssertionError(f"TTS zero-shot on Qwen2 text: K1 {k1}, "
+                                 f"K2 {k2}, {wav.shape}")
+        del tts, pipe
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+        argv = ["--random_init", "--config", str(repo / config), "--device",
+                device, "--out", str(root / "cli.wav"), "--text",
+                QWEN_CLI_TEXT, "--tokenizer_path", str(d),
+                "--override", "model.lm.qwen.quantized=true",
+                "--override", f"model.max_speech_tokens={max_tokens}",
+                "--override", f"model.lm.qwen.n_layers={lm_layers}"]
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(repo / "chip_smoke.py"), SYNTH_WORKER,
+             *argv], capture_output=True, text=True, timeout=600, cwd=repo)
+        cli_s = time.perf_counter() - t0
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith('{"synth_worker"')]
+        if res.returncode or not lines:
+            raise AssertionError(f"cli/synthesize.py --tokenizer_path: rc "
+                                 f"{res.returncode}\n{res.stdout[-2000:]}"
+                                 f"\n{res.stderr[-4000:]}")
+        w = json.loads(lines[-1])["synth_worker"]
+        log(f"[qwen] {card} | cli/synthesize.py --tokenizer_path in a "
+            f"subprocess, {cli_s:.1f} s: {w['samples'] / 24000:.2f} s of "
+            f"audio, {cli_pieces} piece(s); "
+            f"{check_text_ids(w['ids'], 'cli/synthesize.py')}; K1 "
+            f"{w['k1']} (expected {want * cli_pieces}), K2 {w['k2']}")
+        if w["k1"] != want * cli_pieces or sum(w["k2"].values()) \
+                or not w["samples"] or not w["finite"]:
+            raise AssertionError(f"cli/synthesize.py on Qwen2 text: {w}")
+        return {"launches": {"qwen_text_zero_shot": want,
+                             "qwen_text_synth_cli": want},
+                "load_s": round(load_s, 4),
+                "chars_per_s": {k: round(v) for k, v in rate.items()}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def tf32_off():
     """fp32 matmuls and convolutions without TF32, in this process (the
     main one, or a rank of phases 32-33's gang)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# phases 5 and 8-50 run in STREAMS: three processes at once on the one
+# card (this one and two workers), each a list of phases in order, once
+# the quiet phases 1-4, 6 and 7 have given the kernels line its times.
+# Their own times carry the other streams' load on the card and the host;
+# torch's CPU threads are shared among them (stream_threads). A worker's
+# log is printed whole when it ends
+STREAMS = ("synthesis", "lm_train", "flow_gan")
+STREAM_WORKER = "--stream-worker"
+# the lock file that `heavy` holds, named in the streams' environment
+HEAVY_LOCK = "CHIP_SMOKE_HEAVY_LOCK"
+
+
+@contextlib.contextmanager
+def heavy(what: str):
+    """Held around the phases whose device memory peaks above ~15 GiB
+    (the DAC GAN's 38.9 GiB, the 24-layer LM steps' 16-17 GiB, the image
+    track's 23.8, the ranks' two processes): one at a time among the
+    streams, so that one of them and the other streams' lighter phases
+    fit in the card's 80 GB together. The cached blocks are freed before
+    the next may start. Outside run_streams (no HEAVY_LOCK), nothing."""
+    path = os.environ.get(HEAVY_LOCK)
+    if not path:
+        yield
+        return
+    import fcntl
+    import gc
+
+    import torch
+
+    with open(path, "a") as lock:
+        t0 = time.perf_counter()
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        waited = time.perf_counter() - t0
+        if waited > 0.5:
+            log(f"[heavy] {what}: waited {waited:.1f} s for another "
+                f"stream's heavy phase")
+        try:
+            yield
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def stream_threads() -> int:
+    """torch's CPU threads in each stream: the cores this process may
+    run on, shared among STREAMS."""
+    return max(2, len(os.sched_getaffinity(0)) // len(STREAMS))
+
+
+def synthesis_cfg():
+    """The synthesis configuration of phases 3-5 and 10-18: TTSConfig()
+    at GEN_TOKENS, the LM as bench.py builds it: W8A8 projections with
+    random int8 kernels (bf16 elsewhere in phase 4)."""
+    from minimax_speech_torch.infer.pipeline import TTSConfig
+
+    train_lm = TTSConfig().lm
+    cfg = fixed_length(TTSConfig(), GEN_TOKENS)
+    return dataclasses.replace(cfg, lm=dataclasses.replace(
+        train_lm, qwen=dataclasses.replace(train_lm.qwen, quantized=True)))
+
+
+def stream_synthesis(card: str, shared: dict) -> dict:
+    """Phases 5, 10-18 (synthesis, streaming, serving), 39-44 (CAM++,
+    codec file, transforms, Matcha, legacy), 49 (export) and 50 (Qwen2
+    text).
+    Returns the kernels line's updates, {"record": ..., "k2": ...}."""
+    import torch
+
+    from minimax_speech_torch.infer.pipeline import TTSPipeline
+
+    t0 = time.perf_counter()
+    cfg, inputs = synthesis_cfg(), prompts()
+    h, d = cfg.flow.unet.num_heads, cfg.flow.unet.attention_head_dim
+    pipes = reduced_pipes(cfg, inputs)
+    cross_check(pipes, inputs)
+    w8a8_cross_check(cfg, pipes, inputs)
+    del pipes
+    t0 = phase_time(5, t0)
+
+    w8a8_checks(cfg.lm.qwen, card)
+    t0 = phase_time(10, t0)
+    pipe = TTSPipeline.from_random(shallow_lm(cfg), seed=0, device="cuda")
+    pipe.lm.to(torch.bfloat16)
+    paths, shapes, _ = stream_main_path(pipe, inputs, card)
+    del pipe
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    record = {"launches_by_path": paths, "at_streaming_shapes": {}}
+    for path, ((bb, tt), kv_s) in shapes.items():
+        chunk = cfg.flow.unet.static_chunk_size if "chunk50" in path else 0
+        record["at_streaming_shapes"][path] = k1_timing(
+            gen, (bb, h, tt, d), kv_s, chunk)
+    t0 = phase_time(11, t0)
+    stream_cross_check(reduced_pipes(cfg, inputs), inputs)
+    t0 = phase_time(12, t0)
+    synth_cli_phase()
+    t0 = phase_time(13, t0)
+
+    # serving: phases 15 and 16, then 14 at the shapes they gave K1
+    pipe = TTSPipeline.from_random(shallow_lm(fixed_length(cfg,
+                                                           SERVE_TOKENS)),
+                                   seed=0, device="cuda")
+    pipe.lm.to(torch.bfloat16)
+    reqs = serve_requests(pipe, SERVE_SPECS)
+    batch_launches, batch_seen = serve_batch_phase(pipe, reqs[:4], card)
+    t0 = phase_time(15, t0)
+    hop_launches, hop_seen = serve_stream_phase(pipe, reqs, card)
+    t0 = phase_time(16, t0)
+    paths.update(serve_batch=batch_launches[0], **hop_launches)
+    record["at_serving_shapes"] = serving_k1_phase(
+        batch_seen, hop_seen, h, d, cfg.flow.unet.static_chunk_size)
+    t0 = phase_time(14, t0)
+    serve_cli_phase()
+    warm_phase(pipe, card)
+    del pipe
+    torch.cuda.empty_cache()
+    t0 = phase_time(17, t0)
+    serve_cross_check(reduced_pipes(cfg, inputs))
+    t0 = phase_time(18, t0)
+
+    xvector = campplus_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(39, t0)
+    codec_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(40, t0)
+    transforms_phase(card)
+    t0 = phase_time(41, t0)
+
+    # Matcha-TTS and the legacy CosyVoice1 flow and LM: phases 42-44
+    matcha = matcha_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(42, t0)
+    matcha_train = matcha_train_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(43, t0)
+    legacy = legacy_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(44, t0)
+
+    export_rec = export_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(49, t0)
+    qwen = qwen_text_phase(card)
+    torch.cuda.empty_cache()
+    phase_time(50, t0)
+
+    zeros = {"codec_file_cli": 0, "transforms_and_train_dac": 0}
+    paths.update(
+        **zeros, **matcha["launches"], matcha_train_cli=0,
+        xvector_zero_shot=xvector["launches"],
+        legacy_flow_inference=legacy["launches"]["legacy_flow_inference"],
+        legacy_flow_loss=0, **export_rec["launches"], **qwen["launches"])
+    record.update(at_matcha_shapes=matcha["k1"],
+                  at_legacy_shapes=legacy["k1"],
+                  export_s=export_rec["seconds"],
+                  qwen_text={k: qwen[k] for k in ("load_s", "chars_per_s")})
+    k2 = {"launches_by_path": {
+        **zeros, "matcha_cli_unbatched": 0, "matcha_cli_batched": 0,
+        "xvector_zero_shot": 0,
+        **matcha_train["launches"], "legacy_flow_inference": 0,
+        "legacy_flow_loss": legacy["launches"]["legacy_flow_loss"],
+        **{p: 0 for p in export_rec["launches"]},
+        **{p: 0 for p in qwen["launches"]}},
+        "per_step_by_path": {"matcha_train_cli": matcha_train["per_step"]},
+        "at_matcha_train_shapes": matcha_train["k2"],
+        "at_legacy_train_shapes": legacy["k2"],
+        "matcha_step_ms": matcha_train["step_ms"],
+        "matcha_mas_ms": matcha_train["mas_ms"]}
+    return {"record": record, "k2": k2}
+
+
+def stream_lm_train(card: str, shared: dict) -> dict:
+    """Phases 8 and 9 (the LM's training CLI, card vs CPU), 28-31 (remat,
+    DPO) and 32-34 (training over two ranks). `shared["lm_off"]` is phase
+    7's remat-off record."""
+    import torch
+
+    from minimax_speech_torch.infer.pipeline import TTSConfig
+    from minimax_speech_torch.utils.gang import Gang
+
+    t0 = time.perf_counter()
+    train_lm = TTSConfig().lm
+    q = train_lm.qwen
+    batch = lm_batch(train_lm)
+    cli_phase(lm_layers=PATH_LM_LAYERS)
+    t0 = phase_time(8, t0)
+    train_cross_check(train_lm, batch)
+    torch.cuda.empty_cache()
+    t0 = phase_time(9, t0)
+
+    with heavy("phase 28"):
+        remat_rec = remat_phase(train_lm, batch, card,
+                                off=shared["lm_off"])
+    t0 = phase_time(28, t0)
+    dbatch = dpo_batch(train_lm)
+    dpo_rec = dpo_phase(shallow_lm(TTSConfig()).lm, dbatch, card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(29, t0)
+    dpo_cross_check(train_lm, dbatch)
+    torch.cuda.empty_cache()
+    t0 = phase_time(30, t0)
+    cli_phase(dpo=True, resume=False, lm_layers=PATH_LM_LAYERS)
+    cli_phase(remat="dots", resume=False, lm_layers=PATH_LM_LAYERS)
+    t0 = phase_time(31, t0)
+
+    # training over two ranks: phases 32-34, each timed; world size 1
+    # runs here while the gang's ranks start, before the gang's first job
+    flow_cfg = TTSConfig().flow
+    fbatch = flow_batch(flow_cfg)
+    u = flow_cfg.unet
+    backend = dist_backend()
+    initial = Path(__file__).resolve().parent / "build" / "dist_lm.pt"
+    with heavy("phases 32-33"):
+        gang = Gang(2, "chip_smoke", backend, "cuda")
+        try:
+            world1_phase(train_lm, batch)
+            torch.cuda.empty_cache()
+            # the ranks' LM and DPO jobs at PATH_LM_LAYERS of 24 layers,
+            # full widths (K2's shapes per rank are the full model's),
+            # from phase 31's weights (as lm_module asks for them: a
+            # cache hit), which the ranks read in place of running the
+            # initialiser
+            dist_cfg = shallow_lm(TTSConfig()).lm
+            initial.parent.mkdir(parents=True, exist_ok=True)
+            torch.save(lm_weights(remat_lm(dist_cfg, "off"), 0, None),
+                       initial)
+            lm_weights.cache_clear()
+            log(f"[time] phase 32, world size 1 with the ranks' start-up "
+                f"and the weights' file: {time.perf_counter() - t0:.1f} s")
+            dist_lm = dist_phase(gang, "lm", dist_cfg, batch, card, backend,
+                                 weights=str(initial))
+            dist_dpo = dist_phase(
+                gang, "dpo", dist_cfg,
+                {k: v[:DPO_CROSS_BATCH] for k, v in dbatch.items()}, card,
+                backend, meshes=((1, 2),), steps_n=2)
+            lens = [int(n) for n in batch["seq_len"]]
+            at_dist = dist_k2_phase([
+                ("lm_tp2", (LM_BATCH, q.n_heads // 2, LM_PAD, q.head_dim),
+                 lens, "causal"),
+                ("lm_dp2", (LM_BATCH // 2, q.n_heads, LM_PAD, q.head_dim),
+                 lens[:LM_BATCH // 2], "causal")])
+            t0 = phase_time(32, t0)
+            dist_flow = dist_phase(gang, "flow", flow_cfg, fbatch, card,
+                                   backend,
+                                   symmetric=flow_symmetric(flow_cfg),
+                                   steps_n=FLOW_DIST_STEPS)
+            t_f = fbatch["feat"].shape[1]
+            lens = [int(n) for n in fbatch["feat_len"]]
+            at_dist.update(dist_k2_phase([
+                ("flow_tp2", (FLOW_BATCH, u.num_heads // 2, t_f,
+                              u.attention_head_dim), lens, "full"),
+                ("flow_dp2", (FLOW_BATCH // 2, u.num_heads, t_f,
+                              u.attention_head_dim),
+                 lens[:FLOW_BATCH // 2], "full")]))
+            t0 = phase_time(33, t0)
+        finally:
+            gang.close()
+            initial.unlink(missing_ok=True)
+    launch_rec = launch_phase(card, backend)
+    phase_time(34, t0)
+
+    # totals over the timed steps, as lm_train's; per step beside them
+    runs = {f"lm_train_remat_{m}": r for m, r in remat_rec.items()}
+    runs.update({f"dpo_train_remat_{m}": r for m, r in dpo_rec.items()})
+    k2 = {"launches_by_path": {p: r["launches"] for p, r in runs.items()},
+          "per_step_by_path": {p: r["per_step"] for p, r in runs.items()},
+          "at_dist_shapes": at_dist}
+    # per rank, over each run's steps
+    for rec in (dist_lm, dist_dpo, dist_flow):
+        k2["launches_by_path"].update({
+            p: int(sum(v.values()) * rec["steps"])
+            for p, v in rec["per_step"].items()})
+        k2["per_step_by_path"].update(rec["per_step"])
+    k2["launches_by_path"]["lm_train_cli_launch_tp2"] = \
+        launch_rec["launches"]
+    k2["per_step_by_path"]["lm_train_cli_launch_tp2"] = \
+        launch_rec["per_step"]
+    k2["dist_step_s_per_rank"] = {**dist_lm["step_s"],
+                                  **dist_flow["step_s"]}
+    return {"record": {}, "k2": k2}
+
+
+def stream_flow_gan(card: str, shared: dict) -> dict:
+    """Phases 19-22 (flow training), 23-27 (the mel output mode), 35-38
+    (codec and vocoder GAN training, extraction) and 45-48 (flowae)."""
+    import torch
+
+    from minimax_speech_torch.infer.pipeline import TTSConfig, TTSPipeline
+
+    t0 = time.perf_counter()
+    cfg, inputs = synthesis_cfg(), prompts()
+    # flow training: phase 19 at the shapes of phase 20's batch, then 20-22
+    flow_cfg = TTSConfig().flow
+    fbatch = flow_batch(flow_cfg)
+    u = flow_cfg.unet
+    k2 = {"at_flow_train_shapes": flow_k2_phase(
+        (FLOW_BATCH, u.num_heads, fbatch["feat"].shape[1],
+         u.attention_head_dim), [int(n) for n in fbatch["feat_len"]])}
+    t0 = phase_time(19, t0)
+    flow_rec = flow_train_phase(flow_cfg, fbatch, card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(20, t0)
+    k2["launches_by_path"] = {"flow_train": flow_rec.pop("flow_train")}
+    k2.update(flow_rec)
+    cli_phase(model="flow")
+    t0 = phase_time(21, t0)
+    flow_cross_check(flow_cfg, fbatch)
+    t0 = phase_time(22, t0)
+
+    # the mel output mode (HiFT): phases 23-27
+    mel_cfg = dataclasses.replace(cfg, output_type="mel")
+    hift_rec = hift_phase(mel_cfg.hift, card)
+    t0 = phase_time(23, t0)
+    pipe = TTSPipeline.from_random(shallow_lm(mel_cfg), seed=0,
+                                   device="cuda")
+    pipe.lm.to(torch.bfloat16)
+    voice(pipe.hift, HIFT_SEED)
+    paths = mel_synthesis_phase(pipe, inputs, card)
+    t0 = phase_time(24, t0)
+    paths["mel_serve_batch"] = mel_serve_phase(pipe, card)
+    del pipe
+    torch.cuda.empty_cache()
+    t0 = phase_time(25, t0)
+    pipes = reduced_pipes(mel_cfg, inputs)
+    for p in pipes[1:3]:  # phase 23's HiFT, whose gaps set the PCM limit
+        p.hift.load_state_dict(hift_rec["state"])
+    cross_check(pipes, inputs, hift_gaps=hift_rec["gaps"])
+    t0 = phase_time(26, t0)
+    convert_phase(pipes, inputs, card)
+    del pipes
+    torch.cuda.empty_cache()
+    t0 = phase_time(27, t0)
+
+    # codec and vocoder GAN training, extraction: phases 35-38
+    with heavy("phases 35-36"):
+        gan_train_phase("dac", TTSConfig().dac, card)
+        torch.cuda.empty_cache()
+        t0 = phase_time(35, t0)
+        gan_train_phase("hift", TTSConfig().hift, card)
+    t0 = phase_time(36, t0)
+    gan_cross_check("dac", TTSConfig().dac)
+    gan_cross_check("hift", TTSConfig().hift)
+    v1_cross_check()
+    t0 = phase_time(37, t0)
+    with heavy("phase 38"):
+        gan_cli_phase(card)
+    t0 = phase_time(38, t0)
+
+    # flowae: phases 45-48, each asserting K1 = K2 = 0
+    dito_rec, dito_ae = dito_phase(card)
+    torch.cuda.empty_cache()
+    t0 = phase_time(45, t0)
+    zdm_rec = zdm_glpto_phase(card, dito_ae)
+    torch.cuda.empty_cache()
+    t0 = phase_time(46, t0)
+    with heavy("phase 47"):
+        image_rec = image_phase(card)
+    t0 = phase_time(47, t0)
+    cli_times = flowae_cli_phase(card, dito_ae)
+    del dito_ae
+    torch.cuda.empty_cache()
+    phase_time(48, t0)
+
+    zeros = {"dac_gan_train": 0, "hift_gan_train": 0,
+             "gan_and_extract_cli": 0, **{p: 0 for p in FLOWAE_PATHS}}
+    paths.update(zeros)
+    k2["launches_by_path"].update(zeros)
+    return {"record": {"launches_by_path": paths, "flowae": {
+        "dito": dito_rec, "zdm_glpto": zdm_rec, "image": image_rec,
+        "cli_s": cli_times}}, "k2": k2}
+
+
+STREAM_FNS = {"synthesis": stream_synthesis, "lm_train": stream_lm_train,
+              "flow_gan": stream_flow_gan}
+
+
+def stream_worker(argv) -> int:
+    """A stream's process, `python chip_smoke.py --stream-worker NAME
+    RESULT.json SHARED_JSON`: STREAM_FNS[NAME] on the card, its updates
+    to the kernels line written to RESULT.json."""
+    import torch
+
+    import signal
+    import threading
+
+    name, result, shared = argv
+    parent = os.getppid()
+
+    def orphaned():  # the main process ended: end this group with it
+        while os.getppid() == parent:
+            time.sleep(1)
+        os.killpg(0, signal.SIGKILL)
+    threading.Thread(target=orphaned, daemon=True).start()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    tf32_off()
+    torch.set_num_threads(stream_threads())
+    out = STREAM_FNS[name](card_info(), json.loads(shared))
+    Path(result).write_text(json.dumps(out))
+    return 0
+
+
+def stop_group(proc) -> None:
+    """End a worker and every process it started (its own group)."""
+    import signal
+
+    for sig, wait in ((signal.SIGTERM, 30), (signal.SIGKILL, 30)):
+        if proc.poll() is not None:
+            return
+        try:
+            os.killpg(proc.pid, sig)
+        except ProcessLookupError:
+            return
+        try:
+            proc.wait(timeout=wait)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+def run_streams(card: str, shared: dict) -> list:
+    """STREAMS[0] in this process while the others run as workers, each
+    in its own process group with its log in build/streams_*/; the
+    streams' updates in STREAMS order. Any stream's failure fails the
+    run, after every worker has been stopped and its log printed. A
+    worker whose parent is gone stops its group (stream_worker)."""
+    import signal
+    import tempfile
+
+    import torch
+
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    logs = Path(tempfile.mkdtemp(prefix="streams_", dir=repo / "build"))
+    # a SIGTERM to this process stops the workers too (the finally below)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    threads = stream_threads()
+    os.environ["OMP_NUM_THREADS"] = str(threads)  # the CLIs, the ranks
+    os.environ[HEAVY_LOCK] = str(logs / "heavy.lock")  # and the workers
+    torch.set_num_threads(threads)
+    workers, printed = {}, set()
+
+    def show(name):
+        if name not in printed:
+            printed.add(name)
+            log(f"[streams] {name} (beside {', '.join(STREAMS)}):")
+            print((logs / f"{name}.log").read_text(), end="", flush=True)
+
+    try:
+        for name in STREAMS[1:]:
+            with open(logs / f"{name}.log", "w") as out:
+                workers[name] = subprocess.Popen(
+                    [sys.executable, str(repo / "chip_smoke.py"),
+                     STREAM_WORKER, name, str(logs / f"{name}.json"),
+                     json.dumps(shared)], cwd=repo, stdout=out,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+        t0 = time.perf_counter()
+        log(f"[streams] {STREAMS[0]} here, {', '.join(STREAMS[1:])} in "
+            f"workers, {threads} CPU threads each")
+        results = [STREAM_FNS[STREAMS[0]](card, shared)]
+        log(f"[time] stream {STREAMS[0]}: {time.perf_counter() - t0:.1f} s")
+        for name, proc in workers.items():
+            rc = proc.wait()
+            show(name)
+            log(f"[time] stream {name} ended {time.perf_counter() - t0:.1f}"
+                f" s after the streams started, rc {rc}")
+            if rc:
+                tail = (logs / f"{name}.log").read_text()[-6000:]
+                print(tail, file=sys.stderr)
+                raise AssertionError(f"stream {name} exited {rc}")
+            results.append(json.loads((logs / f"{name}.json").read_text()))
+        return results
+    finally:
+        for name, proc in workers.items():
+            stop_group(proc)
+            show(name)
+
+
+def merge(rec: dict, update: dict) -> None:
+    """rec updated by update, one level into the dicts both hold."""
+    for k, v in update.items():
+        if isinstance(v, dict) and isinstance(rec.get(k), dict):
+            rec[k].update(v)
+        else:
+            rec[k] = v
 
 
 def main() -> int:
@@ -6159,12 +7021,9 @@ def main() -> int:
     build_phase(build)
     t0 = phase_time(2, t0)
 
+    # phases 3, 4, 6 and 7 alone on the card: the kernels line's times
     train_lm = TTSConfig().lm  # training runs the float LM
-    cfg = fixed_length(TTSConfig(), GEN_TOKENS)
-    # synthesis runs the LM as bench.py builds it: W8A8 projections with
-    # random int8 kernels (bf16 elsewhere in phase 4)
-    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(
-        train_lm, qwen=dataclasses.replace(train_lm.qwen, quantized=True)))
+    cfg = synthesis_cfg()
     inputs = prompts()
     b, h = 2, cfg.flow.unet.num_heads  # CFG batch of 2
     d = cfg.flow.unet.attention_head_dim
@@ -6185,11 +7044,6 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     t0 = phase_time(4, t0)
-    pipes = reduced_pipes(cfg, inputs)
-    cross_check(pipes, inputs)
-    w8a8_cross_check(cfg, pipes, inputs)
-    del pipes
-    t0 = phase_time(5, t0)
     record["launches"] = per_utt[-1]
 
     batch = lm_batch(train_lm)
@@ -6200,264 +7054,17 @@ def main() -> int:
     lm_rec = lm_train_phase(train_lm, batch, card)
     k2.update({k: lm_rec[k] for k in ("launches", "launches_per_step",
                                       "step_s", "tokens_per_s")})
+    k2["launches_by_path"] = {"lm_train": k2["launches"]}
+    del batch
     torch.cuda.empty_cache()
     t0 = phase_time(7, t0)
-    cli_phase(lm_layers=PATH_LM_LAYERS)
-    t0 = phase_time(8, t0)
-    train_cross_check(train_lm, batch)
-    t0 = phase_time(9, t0)
 
-    w8a8_checks(cfg.lm.qwen, card)
-    t0 = phase_time(10, t0)
-    pipe = TTSPipeline.from_random(shallow_lm(cfg), seed=0, device="cuda")
-    pipe.lm.to(torch.bfloat16)
-    record["launches_by_path"], shapes, _ = stream_main_path(pipe, inputs,
-                                                             card)
-    del pipe
-    torch.cuda.empty_cache()
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    record["at_streaming_shapes"] = {}
-    for path, ((bb, tt), kv_s) in shapes.items():
-        chunk = cfg.flow.unet.static_chunk_size if "chunk50" in path else 0
-        record["at_streaming_shapes"][path] = k1_timing(
-            gen, (bb, h, tt, d), kv_s, chunk)
-    t0 = phase_time(11, t0)
-    stream_cross_check(reduced_pipes(cfg, inputs), inputs)
-    t0 = phase_time(12, t0)
-    synth_cli_phase()
-    t0 = phase_time(13, t0)
-
-    # serving: phases 15 and 16, then 14 at the shapes they gave K1
-    pipe = TTSPipeline.from_random(fixed_length(cfg, SERVE_TOKENS), seed=0,
-                                   device="cuda")
-    pipe.lm.to(torch.bfloat16)
-    reqs = serve_requests(pipe, SERVE_SPECS)
-    batch_launches, batch_seen = serve_batch_phase(pipe, reqs[:4], card)
-    t0 = phase_time(15, t0)
-    hop_launches, hop_seen = serve_stream_phase(pipe, reqs, card)
-    t0 = phase_time(16, t0)
-    record["launches_by_path"].update(serve_batch=batch_launches[0],
-                                      **hop_launches)
-    record["at_serving_shapes"] = serving_k1_phase(
-        batch_seen, hop_seen, h, d, cfg.flow.unet.static_chunk_size)
-    t0 = phase_time(14, t0)
-    serve_cli_phase()
-    warm_phase(pipe, card)
-    del pipe
-    torch.cuda.empty_cache()
-    t0 = phase_time(17, t0)
-    serve_cross_check(reduced_pipes(cfg, inputs))
-    t0 = phase_time(18, t0)
-
-    # flow training: phase 19 at the shapes of phase 20's batch, then 20-22
-    flow_cfg = TTSConfig().flow
-    fbatch = flow_batch(flow_cfg)
-    u = flow_cfg.unet
-    k2["at_flow_train_shapes"] = flow_k2_phase(
-        (FLOW_BATCH, u.num_heads, fbatch["feat"].shape[1],
-         u.attention_head_dim), [int(n) for n in fbatch["feat_len"]])
-    t0 = phase_time(19, t0)
-    flow_rec = flow_train_phase(flow_cfg, fbatch, card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(20, t0)
-    k2["launches_by_path"] = {"lm_train": k2["launches"],
-                              "flow_train": flow_rec.pop("flow_train")}
-    k2.update(flow_rec)
-    cli_phase(model="flow")
-    t0 = phase_time(21, t0)
-    flow_cross_check(flow_cfg, fbatch)
-    t0 = phase_time(22, t0)
-
-    # the mel output mode (HiFT): phases 23-27
-    mel_cfg = dataclasses.replace(cfg, output_type="mel")
-    hift_rec = hift_phase(mel_cfg.hift, card)
-    t0 = phase_time(23, t0)
-    pipe = TTSPipeline.from_random(shallow_lm(mel_cfg), seed=0,
-                                   device="cuda")
-    pipe.lm.to(torch.bfloat16)
-    voice(pipe.hift, HIFT_SEED)
-    record["launches_by_path"].update(mel_synthesis_phase(pipe, inputs,
-                                                          card))
-    t0 = phase_time(24, t0)
-    record["launches_by_path"]["mel_serve_batch"] = mel_serve_phase(pipe,
-                                                                    card)
-    del pipe
-    torch.cuda.empty_cache()
-    t0 = phase_time(25, t0)
-    pipes = reduced_pipes(mel_cfg, inputs)
-    for p in pipes[1:3]:  # phase 23's HiFT, whose gaps set the PCM limit
-        p.hift.load_state_dict(hift_rec["state"])
-    cross_check(pipes, inputs, hift_gaps=hift_rec["gaps"])
-    t0 = phase_time(26, t0)
-    convert_phase(pipes, inputs, card)
-    del pipes
-    torch.cuda.empty_cache()
-    t0 = phase_time(27, t0)
-
-    # the rest of LM training: phases 28-31, each timed
-    remat_rec = remat_phase(train_lm, batch, card, off={
-        "step_s": lm_rec["step_s"], "peak_gib": lm_rec["peak_gib"],
-        "busy_ms": lm_rec["busy_ms"], "launches": lm_rec["launches"],
-        "per_step": lm_rec["launches_per_step"]})
-    t0 = phase_time(28, t0)
-    dbatch = dpo_batch(train_lm)
-    dpo_rec = dpo_phase(shallow_lm(TTSConfig()).lm, dbatch, card)
-    t0 = phase_time(29, t0)
-    dpo_cross_check(train_lm, dbatch)
-    t0 = phase_time(30, t0)
-    cli_phase(dpo=True, resume=False, lm_layers=PATH_LM_LAYERS)
-    cli_phase(remat="dots", resume=False, lm_layers=PATH_LM_LAYERS)
-    t0 = phase_time(31, t0)
-
-    # training over two ranks: phases 32-34, each timed; world size 1
-    # runs here while the gang's ranks start, before the gang's first job
-    from minimax_speech_torch.utils.gang import Gang
-    backend = dist_backend()
-    gang = Gang(2, "chip_smoke", backend, "cuda")
-    initial = Path(__file__).resolve().parent / "build" / "dist_lm.pt"
-    try:
-        world1_phase(train_lm, batch)
-        # the ranks' LM and DPO jobs at PATH_LM_LAYERS of 24 layers, full
-        # widths (K2's shapes per rank are the full model's), from
-        # phase 31's weights (as lm_module asks for them: a cache hit),
-        # which the ranks read in place of running the initialiser
-        dist_cfg = shallow_lm(TTSConfig()).lm
-        initial.parent.mkdir(parents=True, exist_ok=True)
-        torch.save(lm_weights(remat_lm(dist_cfg, "off"), 0, None), initial)
-        lm_weights.cache_clear()
-        log(f"[time] phase 32, world size 1 with the ranks' start-up and "
-            f"the weights' file: {time.perf_counter() - t0:.1f} s")
-        dist_lm = dist_phase(gang, "lm", dist_cfg, batch, card, backend,
-                             weights=str(initial))
-        dist_dpo = dist_phase(
-            gang, "dpo", dist_cfg,
-            {k: v[:DPO_CROSS_BATCH] for k, v in dbatch.items()}, card,
-            backend, meshes=((1, 2),), steps_n=2)
-        lens = [int(n) for n in batch["seq_len"]]
-        k2["at_dist_shapes"] = dist_k2_phase([
-            ("lm_tp2", (LM_BATCH, q.n_heads // 2, LM_PAD, q.head_dim),
-             lens, "causal"),
-            ("lm_dp2", (LM_BATCH // 2, q.n_heads, LM_PAD, q.head_dim),
-             lens[:LM_BATCH // 2], "causal")])
-        t0 = phase_time(32, t0)
-        dist_flow = dist_phase(gang, "flow", flow_cfg, fbatch, card, backend,
-                               symmetric=flow_symmetric(flow_cfg),
-                               steps_n=FLOW_DIST_STEPS)
-        t_f = fbatch["feat"].shape[1]
-        lens = [int(n) for n in fbatch["feat_len"]]
-        k2["at_dist_shapes"].update(dist_k2_phase([
-            ("flow_tp2", (FLOW_BATCH, u.num_heads // 2, t_f,
-                          u.attention_head_dim), lens, "full"),
-            ("flow_dp2", (FLOW_BATCH // 2, u.num_heads, t_f,
-                          u.attention_head_dim), lens[:FLOW_BATCH // 2],
-             "full")]))
-        t0 = phase_time(33, t0)
-    finally:
-        gang.close()
-        initial.unlink(missing_ok=True)
-    launch_rec = launch_phase(card, backend)
-    t0 = phase_time(34, t0)
-
-    # codec and vocoder GAN training, extraction: phases 35-38
-    gan_train_phase("dac", TTSConfig().dac, card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(35, t0)
-    gan_train_phase("hift", TTSConfig().hift, card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(36, t0)
-    gan_cross_check("dac", TTSConfig().dac)
-    gan_cross_check("hift", TTSConfig().hift)
-    v1_cross_check()
-    t0 = phase_time(37, t0)
-    gan_cli_phase(card)
-    t0 = phase_time(38, t0)
-
-    # the rest of inference and the transforms: phases 39-41
-    xvector = campplus_phase(card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(39, t0)
-    codec_phase(card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(40, t0)
-    transforms_phase(card)
-    t0 = phase_time(41, t0)
-
-    # Matcha-TTS and the legacy CosyVoice1 flow and LM: phases 42-44
-    matcha = matcha_phase(card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(42, t0)
-    matcha_train = matcha_train_phase(card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(43, t0)
-    legacy = legacy_phase(card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(44, t0)
-
-    # flowae: phases 45-48, each asserting K1 = K2 = 0
-    dito_rec, dito_ae = dito_phase(card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(45, t0)
-    zdm_rec = zdm_glpto_phase(card, dito_ae)
-    torch.cuda.empty_cache()
-    t0 = phase_time(46, t0)
-    image_rec = image_phase(card)
-    torch.cuda.empty_cache()
-    t0 = phase_time(47, t0)
-    cli_times = flowae_cli_phase(card, dito_ae)
-    del dito_ae
-    torch.cuda.empty_cache()
-    t0 = phase_time(48, t0)
-
-    # export: phase 49
-    export_rec = export_phase(card)
-    torch.cuda.empty_cache()
-    phase_time(49, t0)
-    record["launches_by_path"]["xvector_zero_shot"] = xvector["launches"]
-    k2["launches_by_path"]["xvector_zero_shot"] = 0
-    for rec in (record, k2):  # asserted 0 in each phase
-        rec["launches_by_path"].update(
-            dac_gan_train=0, hift_gan_train=0, gan_and_extract_cli=0,
-            codec_file_cli=0, transforms_and_train_dac=0)
-    # totals over the timed steps, as lm_train's; per step beside them
-    paths = {f"lm_train_remat_{m}": r for m, r in remat_rec.items()}
-    paths.update({f"dpo_train_remat_{m}": r for m, r in dpo_rec.items()})
-    k2["launches_by_path"].update({p: r["launches"] for p, r in
-                                   paths.items()})
-    k2["per_step_by_path"] = {p: r["per_step"] for p, r in paths.items()}
-    # per rank, over each run's steps
-    for rec in (dist_lm, dist_dpo, dist_flow):
-        k2["launches_by_path"].update({
-            p: int(sum(v.values()) * rec["steps"])
-            for p, v in rec["per_step"].items()})
-        k2["per_step_by_path"].update(rec["per_step"])
-    k2["launches_by_path"]["lm_train_cli_launch_tp2"] = \
-        launch_rec["launches"]
-    k2["per_step_by_path"]["lm_train_cli_launch_tp2"] = \
-        launch_rec["per_step"]
-    k2["dist_step_s_per_rank"] = {**dist_lm["step_s"],
-                                  **dist_flow["step_s"]}
-    record["launches_by_path"].update(
-        **matcha["launches"], matcha_train_cli=0,
-        legacy_flow_inference=legacy["launches"]["legacy_flow_inference"],
-        legacy_flow_loss=0)
-    k2["launches_by_path"].update(
-        matcha_cli_unbatched=0, matcha_cli_batched=0,
-        **matcha_train["launches"], legacy_flow_inference=0,
-        legacy_flow_loss=legacy["launches"]["legacy_flow_loss"])
-    k2["per_step_by_path"]["matcha_train_cli"] = matcha_train["per_step"]
-    record["at_matcha_shapes"] = matcha["k1"]
-    record["at_legacy_shapes"] = legacy["k1"]
-    k2["at_matcha_train_shapes"] = matcha_train["k2"]
-    k2["at_legacy_train_shapes"] = legacy["k2"]
-    k2["matcha_step_ms"] = matcha_train["step_ms"]
-    k2["matcha_mas_ms"] = matcha_train["mas_ms"]
-    for rec in (record, k2):  # asserted 0 in phases 45-48
-        rec["launches_by_path"].update({p: 0 for p in FLOWAE_PATHS})
-    record["flowae"] = {"dito": dito_rec, "zdm_glpto": zdm_rec,
-                        "image": image_rec, "cli_s": cli_times}
-    record["launches_by_path"].update(export_rec["launches"])
-    k2["launches_by_path"].update({p: 0 for p in export_rec["launches"]})
-    record["export_s"] = export_rec["seconds"]
+    for update in run_streams(card, {"lm_off": {
+            "step_s": lm_rec["step_s"], "peak_gib": lm_rec["peak_gib"],
+            "busy_ms": lm_rec["busy_ms"], "launches": lm_rec["launches"],
+            "per_step": lm_rec["launches_per_step"]}}):
+        merge(record, update["record"])
+        merge(k2, update["k2"])
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [record, k2]}))
@@ -6470,4 +7077,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [CLI_WORKER]:
         sys.exit(cli_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [SYNTH_WORKER]:
+        sys.exit(synth_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [STREAM_WORKER]:
+        sys.exit(stream_worker(sys.argv[2:]))
     sys.exit(main())

@@ -42,8 +42,8 @@ bf16 route); the CLI says so. Per-layer remat of the LM:
 --override model.lm.qwen.remat=true (model.lm.qwen.remat_policy none or
 dots).
 
---tokenizer_path takes a .tiktoken asset (the Whisper tokenizer); a
-Hugging Face Qwen directory raises, as the repo holds no vocabulary.
+--tokenizer_path takes a .tiktoken asset (the Whisper tokenizer) or a
+Hugging Face Qwen2 tokenizer directory (infer/qwen_tokenizer.py).
 --dp/--tp > 1 without --distributed raise: one process drives one GPU
 (start the ranks with python -m minimax_speech_torch.cli.launch).
 """

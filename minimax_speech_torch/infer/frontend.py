@@ -3,10 +3,10 @@
 Port of minimax_speech_tpu/infer/frontend.py: `normalize_text`,
 `split_paragraph` and `Frontend` (normalize -> split -> tokenize), with
 the port's copy of the text normalizer (infer/textnorm.py), on the
-hermetic byte tokenizer or the Whisper tiktoken tokenizer of a
-`.tiktoken` asset (infer/whisper_tokenizer.py). The Qwen tokenizer reads
-a Hugging Face vocabulary directory, which the repo does not hold: such
-a path raises.
+hermetic byte tokenizer, the Whisper tiktoken tokenizer of a
+`.tiktoken` asset (infer/whisper_tokenizer.py) or the Qwen2 tokenizer of
+a Hugging Face directory with the TTS special tokens
+(infer/qwen_tokenizer.py, without `transformers`).
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from typing import Iterable, Optional
 
 import numpy as np
 
+from minimax_speech_torch.infer.qwen_tokenizer import (  # noqa: F401
+    SPECIAL_TOKENS, QwenTokenizer)
 from minimax_speech_torch.infer.textnorm import (contains_chinese,
                                                  is_only_punctuation,
                                                  normalize_en, normalize_zh)
@@ -29,15 +31,19 @@ def normalize_text(text: str) -> str:
 
 def split_paragraph(text: str, tokenize, lang: str = "en",
                     token_max_n: int = 80, token_min_n: int = 60,
-                    merge_len: int = 20) -> list[str]:
+                    merge_len: int = 20,
+                    comma_split: bool = False) -> list[str]:
     """Sentence-boundary splitting with max/min token budgets and
     short-tail merging: zh counts characters and splits on zh and latin
     punctuation, en counts tokens and splits on latin sentence
-    punctuation. Closing quotes stay with the sentence before them."""
+    punctuation (both on commas too with comma_split). Closing quotes
+    stay with the sentence before them."""
     if lang == "zh":
         pounc = ["。", "？", "！", "；", "：", "、", ".", "?", "!", ";"]
     else:
         pounc = [".", "?", "!", ";", ":"]
+    if comma_split:
+        pounc.extend(["，", ","])
     if not text:
         return []
     if text[-1] not in pounc:
@@ -85,18 +91,14 @@ class ByteTokenizer:
 
 def get_tokenizer(token_path: Optional[str] = None):
     """None -> the byte tokenizer; a .tiktoken asset ->
-    WhisperTikTokenizer; any other path (a Hugging Face Qwen directory)
-    raises."""
+    WhisperTikTokenizer; any other path -> QwenTokenizer of a Hugging
+    Face Qwen2 tokenizer directory."""
     if token_path and str(token_path).endswith(".tiktoken"):
         from minimax_speech_torch.infer.whisper_tokenizer import \
             WhisperTikTokenizer
         return WhisperTikTokenizer(token_path)
     if token_path:
-        raise NotImplementedError(
-            f"tokenizer {token_path!r}: the Qwen tokenizer is not ported: it "
-            "needs a Hugging Face vocabulary directory, which the repo does "
-            "not hold (ROADMAP.md: not queued); a .tiktoken asset, or no "
-            "path for the byte tokenizer")
+        return QwenTokenizer(token_path)
     return ByteTokenizer()
 
 

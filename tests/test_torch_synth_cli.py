@@ -71,7 +71,7 @@ def test_cli_loads_checkpoint_dir(tmp_path):
 
 
 def test_cli_refuses_a_tokenizer_path_and_no_weights(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="not a Qwen2 tokenizer"):
         t_cli.main(["--random_init", "--device", "cpu", "--config", TINY,
                     "--tokenizer_path", str(tmp_path)])
     with pytest.raises(SystemExit):

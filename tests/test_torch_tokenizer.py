@@ -161,7 +161,8 @@ def test_character_classes_equal_regex():
 @pytest.mark.parametrize("path", list(PATHS))
 def test_get_tokenizer_and_frontend(monkeypatch, asset, path, tmp_path):
     """get_tokenizer and Frontend on a .tiktoken path in each path, as
-    JAX's; a Hugging Face directory still raises, naming why."""
+    JAX's; a directory with no Qwen2 tokenizer files raises, naming
+    them."""
     ref = j_fe.Frontend(asset)
     _hide(monkeypatch, PATHS[path])
     tok = t_fe.get_tokenizer(asset)
@@ -174,5 +175,5 @@ def test_get_tokenizer_and_frontend(monkeypatch, asset, path, tmp_path):
         for piece in ours.text_normalize(text):
             np.testing.assert_array_equal(ours.extract_text_tokens(piece),
                                           ref.extract_text_tokens(piece))
-    with pytest.raises(NotImplementedError, match="Hugging Face"):
+    with pytest.raises(FileNotFoundError, match="tokenizer_config.json"):
         t_fe.get_tokenizer(str(tmp_path))
