@@ -310,19 +310,36 @@ a line; any failure ends the run with a non-zero exit:
      cli/synthesize.py --tokenizer_path dir in a subprocess: the LM's
      text ids above 256 and under 151,936, K1 560 launches per
      utterance, K2 0.
+ 51. the learn-and-speak path at the proof's geometry (configs/tiny.yaml
+     with cli/overfit_pipeline.py's overrides: UNet and LM heads of 8).
+     K1 and K2 at head dims 8 and 16 against their plain versions, fp32
+     and bf16, every mask mode, forward and (K2) backward, at the limits
+     of phases 3 and 6; then cli/overfit_pipeline.run on the card in a
+     temporary workdir at OFIT_BUDGET (2 utterances, tens to hundreds of
+     steps a stage), the counters set to 0 before it: each stage's
+     seconds and K1 / K2 launches asserted (0 in extraction and the
+     codec's training, 3 + 3 K2 a flow step, 2 + 2 a LM step, 30 K1 a
+     flow call of the evaluation), each stage's logged loss lower at its
+     end; the same model directory evaluated on the CPU with the card's
+     flow draws, the deterministic metrics within OFIT_EVAL_TOL; the
+     bf16 flow A/B (cli/eval_bf16_flow.py) on it; the LM stage again at
+     --lm_hidden 64 (heads of 16) from the same corpus and weights; K1
+     at the evaluation's shape and K2 at the flow's and both LMs'
+     training shapes timed as in phases 3 and 6.
 
 Phases 1-4, 6 and 7 run alone on the card: the kernels' times and the
 main paths' launches in the kernels' record come from them. The other
 phases then run in three streams at once (STREAMS: synthesis 5, 10-18,
-39-44, 49, 50; LM training 8, 9, 28-34; flow and GAN 19-27, 35-38,
+39-44, 49, 50; LM training 8, 9, 28-34, 51; flow and GAN 19-27, 35-38,
 45-48), this process and two workers, so their times include the
 others' load on the card and the host; each worker's log is printed
 whole when it ends. Kernel launches are counted per process. The phases
 whose device memory peaks above ~15 GiB (28, 32-33, 35-36, 38, 47) take
 a lock (`heavy`), so that no two of them share the card's 80 GB.
 
-The line before the last holds the kernels' record (JSON); the last line
-is {"ok": true, "device": {...}}.
+The line before the last holds the kernels' record (JSON: K1 and K2 at
+head dim 64, then phase 51's entries at head dims 8 and 16); the last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -498,9 +515,11 @@ def build_phase(build) -> None:
     secs = build.build(sources)
     log(f"[build] {sources} by nvcc {' '.join(build.NVCC_FLAGS)} in "
         f"{secs:.1f} s")
-    def short(fn: str) -> str:  # a mangled kernel name as kernel<dtype>
+    def short(fn: str) -> str:  # a mangled name as kernel<dtype, D>
         kernel = next((k for k in MMA_KERNELS if k in fn), fn)
-        return f"{kernel}<{'bf16' if 'bfloat16' in fn else 'fp32'}>"
+        dim = re.search(r"Li(\d+)EE", fn)
+        return (f"{kernel}<{'bf16' if 'bfloat16' in fn else 'fp32'}"
+                f"{', ' + dim[1] if dim else ''}>")
 
     spills = []
     for src, text in build.BUILD_LOG.items():
@@ -1683,22 +1702,53 @@ def k2_checks(lm_shape, kv_lm):
             "max_abs_err": lm_err, **rec}
 
 
+def k2_grads(q, k, v, do, lens, chunk, left, plain=False) -> list:
+    """[out, dq, dk, dv] of K2's wrapper (or, with `plain`, its plain
+    version) at its default scale s = 1/sqrt(d). dq is s times the
+    gradient that reaches the scaled q (q * s in q's dtype), in float32:
+    the kernels' dq, or the plain version's, before autograd of the
+    scaling rounds it to q's dtype once more. Where s is a power of two
+    (d = 16, 64) that rounding is exact and dq is autograd's dq; at d = 8
+    it would add one rounding on each side. For the kernels, autograd's
+    dq is also held to that gradient times s in q's dtype, bit for bit."""
+    import torch
+
+    from minimax_speech_torch.kernels import splash
+
+    s = q.shape[-1] ** -0.5
+    x = [a.clone().requires_grad_() for a in (q, k, v)]
+    if plain:
+        # the plain version scales q as the wrapper does: take that scaled
+        # q as the leaf, at scale 1
+        x[0] = (q * s).to(q.dtype).requires_grad_()
+        out = splash.reference_splash_attention(*x, lens, chunk, left,
+                                                scale=1.0)
+        dqs, dk, dv = torch.autograd.grad(out, x, do)
+        return [out.detach(), dqs.float() * s, dk, dv]
+    out = splash.splash_chunk_attention(*x, lens, chunk, left)
+    caught = []
+    # the node that scaled q; the gradient it receives is the kernels' dq
+    out.grad_fn.next_functions[0][0].register_prehook(
+        lambda g: caught.append(g[0]))
+    dq, dk, dv = torch.autograd.grad(out, x, do)
+    if not torch.equal(dq, (caught[0] * s).to(q.dtype)):
+        raise AssertionError("K2's dq is not its scaled-q gradient times "
+                             "the scale")
+    return [out.detach(), caught[0].float() * s, dk, dv]
+
+
 def k2_agreement(cases, modes, gen) -> float:
     """K2 against its plain version on random q, k, v, dO for each (shape,
     kv_len) case, in each mask mode of `modes` (name -> (chunk, left)),
     fp32 and bf16, output and dq, dk, dv at K2_TOL; fails on any
-    disagreement. Returns the largest fp32 error of the first case's
-    first mode."""
+    disagreement. The wrapper runs at its default scale 1/sqrt(d); dq is
+    compared as it reaches the wrapper's scaled q (k2_grads). Returns the
+    largest fp32 error of the first case's first mode."""
     import torch
 
     from minimax_speech_torch.kernels import splash
 
     first_err = None
-
-    def run(fn, q, k, v, do, lens, chunk, left):
-        x = [a.clone().requires_grad_() for a in (q, k, v)]
-        out = fn(*x, lens, chunk, left)
-        return [out.detach()] + list(torch.autograd.grad(out, x, do))
 
     failed = []
     for shape, kv in cases:
@@ -1710,12 +1760,10 @@ def k2_agreement(cases, modes, gen) -> float:
             q, k, v, do = (x.to(dtype) for x in base)
             for mname, (chunk, left) in modes.items():
                 saved = dict(splash.launches)
-                ours = run(splash.splash_chunk_attention, q, k, v, do, lens,
-                           chunk, left)
+                ours = k2_grads(q, k, v, do, lens, chunk, left)
                 torch.cuda.synchronize()
                 splash.launches.update(saved)  # checks are not the path
-                ref = run(splash.reference_splash_attention, q, k, v, do,
-                          lens, chunk, left)
+                ref = k2_grads(q, k, v, do, lens, chunk, left, plain=True)
                 dq_shift, dk_shift = splash.rounded_delta_shift(
                     q, k, v, ours[0], do, lens, chunk, left)
                 shifts = [0.0, dq_shift, dk_shift, 0.0]
@@ -6504,6 +6552,301 @@ def qwen_text_phase(card: str, device="cuda", config="configs/default.yaml",
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 51, the learn-and-speak path (cli/overfit_pipeline.py) at the
+# proof's geometry. OFIT_BUDGET: 2 utterances (2 x 1.2 s), each stage's
+# steps enough for two logged losses (logged every 50 steps: the DAC's
+# from step 0), so that the fall shows; the DAC's iterations cost ~0.54
+# s each on an H100 80GB HBM3 at 700 W (PERF.md), the flow's steps ~0.13
+# s, the LM's ~0.07 s. OFIT_LM16_EPOCHS: the LM stage again at
+# --lm_hidden 64 (heads of 16)
+OFIT_BUDGET = dict(n_utts=2, dac_iters=60, flow_epochs=100,
+                   flow_polish_epochs=20, llm_epochs=100)
+OFIT_LM16_EPOCHS = 100
+# the card's evaluate against the CPU's on one model directory and the
+# same flow draws: float32 in other summation orders (TF32 off) through
+# the conformer, 10 Euler steps of the UNet (K1 against the plain
+# attention) and the codec's decode, relative on the flow's errors and
+# the mel loss, absolute on the codec's SNR (dB) and correlation
+OFIT_EVAL_TOL = {"flow_mse": (1e-3, 0.0), "flow_nmse": (1e-3, 0.0),
+                 "flow_nmse_mean4": (1e-3, 0.0),
+                 "mel_spectral_loss": (1e-3, 0.0),
+                 "dac_snr_db": (0.0, 1e-2), "dac_corr": (0.0, 1e-4)}
+# ... and the LM decode's, on the same host noise: the same tokens (as
+# phase 5 holds the decode), so these agree exactly
+OFIT_EVAL_EXACT = ("token_match", "token_match_w8a8", "gen_len",
+                   "token_len_err")
+# phase 51 holds K1 and K2 against their plain versions at every (shape,
+# key lengths, mask) that the chain gave them (kernel_shapes), after it;
+# these ragged cases, in every mask mode, go first as extras: a T that is
+# not a multiple of the 64-row tiles, batch rows of other lengths, and K1
+# at head dim 16
+OFIT_K1_CASES = [((2, 2, 77, 8), (77, 40)), ((2, 2, 128, 16), (128, 100))]
+OFIT_K2_CASES = [((2, 4, 150, 8), (150, 131)), ((2, 4, 150, 16), (150, 131)),
+                 ((2, 8, 77, 8), (77, 40))]
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Until exit, the launches of K1 and K2's forward counted by (B, H, T,
+    D, dtype), and by what else each got: {"k1": {key: n}, "k2": {key: n},
+    "k1_cases": {(key, kv_len, chunk, left_chunks): n}, "k2_cases": the
+    same for K2}. K1 is counted at its one model caller, the UNet
+    (models/decoder_unet.py), where its key lengths are at hand."""
+    import torch
+
+    from minimax_speech_torch.kernels import splash
+    from minimax_speech_torch.models import decoder_unet
+
+    seen = {"k1": {}, "k2": {}, "k1_cases": {}, "k2_cases": {}}
+    k1_fn, k2_fwd = decoder_unet.flash_attention, splash._kernel_forward
+
+    def count(kernel, q, kv_len, chunk, left):
+        key = (*q.shape, "bf16" if q.dtype == torch.bfloat16 else "fp32")
+        kv = (q.shape[2],) * q.shape[0] if kv_len is None \
+            else tuple(kv_len.tolist())
+        case = (key, kv, int(chunk), int(left))
+        seen[kernel][key] = seen[kernel].get(key, 0) + 1
+        cases = seen[kernel + "_cases"]
+        cases[case] = cases.get(case, 0) + 1
+
+    def k1_wrapped(q, k, v, kv_len=None, chunk=0, left_chunks=-1, **kw):
+        if q.device.type == "cuda":
+            count("k1", q, kv_len, chunk, left_chunks)
+        return k1_fn(q, k, v, kv_len, chunk, left_chunks, **kw)
+
+    def k2_wrapped(q, k, v, kv_len, chunk, left_chunks):
+        count("k2", q, kv_len, chunk, left_chunks)
+        return k2_fwd(q, k, v, kv_len, chunk, left_chunks)
+
+    decoder_unet.flash_attention = k1_wrapped
+    splash._kernel_forward = k2_wrapped
+    try:
+        yield seen
+    finally:
+        decoder_unet.flash_attention = k1_fn
+        splash._kernel_forward = k2_fwd
+
+
+def path_agreement(seen, gen) -> dict:
+    """K1 and K2 against their plain versions at every (shape, key
+    lengths, mask) of `seen` (kernel_shapes), fp32 and bf16 as
+    k1_agreement and k2_agreement hold them, whichever dtype the path ran.
+    Returns {"k1": {shape: err}, "k2": {shape: err}}: the largest fp32
+    error over each (B, H, T, D)'s cases."""
+    errs = {"k1": {}, "k2": {}}
+    for kernel, check in (("k1", k1_agreement), ("k2", k2_agreement)):
+        cases = sorted({(key[:4], kv, chunk, left) for key, kv, chunk, left
+                        in seen[kernel + "_cases"]})
+        for shape, kv, chunk, left in cases:
+            names = [n for n, m in K2_MODES.items() if m == (chunk, left)]
+            name = names[0] if names else f"chunk{chunk}_left{left}"
+            mode = (dict(chunk=chunk, left_chunks=left) if kernel == "k1"
+                    else (chunk, left))
+            err = check([(shape, kv)], {name: mode}, gen)
+            errs[kernel][shape] = max(errs[kernel].get(shape, 0.0), err)
+        log(f"[ofit] {kernel} held against its plain version at the "
+            f"path's {len(cases)} (shape, key lengths, mask) cases")
+    return errs
+
+
+def logged(path: Path, key: str) -> list:
+    """The values of `key` in a metrics JSONL, in order."""
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    return [r[key] for r in rows if key in r]
+
+
+def overfit_phase(card: str, device="cuda", budget=OFIT_BUDGET,
+                  lm16_epochs: int = OFIT_LM16_EPOCHS,
+                  config="configs/tiny.yaml") -> dict:
+    """Phase 51 (the module comment above it and the docstring at the
+    top). Returns {"kernels": the kernels line's entries at head dims 8
+    and 16 (empty on the CPU), "stages": each stage's seconds and
+    launches, "metrics", "cpu_metrics", "bf16", "metrics_lm16"}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from minimax_speech_torch import config as cfg_lib
+    from minimax_speech_torch.cli import eval_bf16_flow as bf16_cli
+    from minimax_speech_torch.cli import overfit_pipeline as ofp
+    from minimax_speech_torch.kernels import flash_attention as fa
+    from minimax_speech_torch.kernels import splash
+
+    cuda = device == "cuda"
+    if cuda:
+        gen = torch.Generator(device="cuda").manual_seed(51)
+        k1_agreement(OFIT_K1_CASES, MODES, gen)
+        k2_agreement(OFIT_K2_CASES, K2_MODES, gen)
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ofit_", dir=repo / "build"))
+    try:
+        wd, stages = root / "w", {}
+        fa.launches = 0
+        splash.launches.update(forward=0, backward=0)
+        with kernel_shapes() as seen:
+            t0 = time.perf_counter()
+            metrics = ofp.run(wd, config=str(repo / config), device=device,
+                              stats=stages, **budget)
+            chain_s = time.perf_counter() - t0
+        k1_total = fa.launches
+        k2_total = dict(splash.launches)
+        cfg = cfg_lib.load_tts_config(wd / "model" / "config.yaml")
+        u = cfg.flow.unet
+        per_flow_step = attn_calls_per_step(u)
+        per_lm_step = cfg.lm.qwen.n_layers
+        per_flow_call = per_flow_step * cfg.flow.n_timesteps
+        # 4 flow draws and 2 zero-shot syntheses in evaluate
+        want = {"extract_fsq": (0, 0), "train_dac": (0, 0),
+                "extract_dac_latents": (0, 0),
+                "train_flow": (0, budget["flow_epochs"] * per_flow_step),
+                "train_flow_polish": (
+                    0, budget["flow_polish_epochs"] * per_flow_step),
+                "train_llm": (0, budget["llm_epochs"] * per_lm_step),
+                "evaluate": (6 * per_flow_call, 0)}
+        if not cuda:
+            want = {k: (0, 0) for k in want}
+        for stage, (k1, k2) in want.items():
+            st = stages[stage]
+            log(f"[ofit] {card} | {stage}: {st['s']:.2f} s, K1 {st['k1']}, "
+                f"K2 {st['k2_fwd']} + {st['k2_bwd']} (expected {k1}, "
+                f"{k2} + {k2})")
+            if (st["k1"], st["k2_fwd"], st["k2_bwd"]) != (k1, k2, k2):
+                raise AssertionError(f"phase 51 {stage}: launches {st}, "
+                                     f"expected K1 {k1}, K2 {k2} + {k2}")
+        for exp, key in (("exp_dac/dac", "gen/loss"), ("exp_flow/flow", "loss"),
+                         ("exp_llm/llm", "loss")):
+            vals = logged(wd / f"{exp}_metrics.jsonl", key)
+            log(f"[ofit] {exp} {key} logged {[round(v, 4) for v in vals]}")
+            if len(vals) < 2 or not vals[-1] < vals[0]:
+                raise AssertionError(f"phase 51: {exp} {key} did not fall: "
+                                     f"{vals}")
+        show = {k: (round(v, 4) if isinstance(v, float) else v)
+                for k, v in metrics.items()}
+        log(f"[ofit] {card} | chain {chain_s:.1f} s, metrics {show}")
+        if not all(np.isfinite(v) for k, v in metrics.items()
+                   if not k.startswith("llm_train")):
+            raise AssertionError(f"phase 51 metrics: {metrics}")
+
+        # the same model directory on the CPU: its flow draws and decode
+        # noise are host noise, the card's numbers
+        meta = ofp.make_corpus(wd / "corpus", n_utts=budget["n_utts"])
+        t0 = time.perf_counter()
+        cpu = ofp.evaluate(wd / "model", wd / "corpus", meta, device="cpu")
+        bad = [k for k in OFIT_EVAL_EXACT if metrics[k] != cpu[k]]
+        log(f"[ofit] card vs CPU, exact: "
+            f"{ {k: (metrics[k], cpu[k]) for k in OFIT_EVAL_EXACT} }")
+        for key, (rtol, atol) in OFIT_EVAL_TOL.items():
+            diff = abs(metrics[key] - cpu[key])
+            ok = diff <= atol + rtol * abs(cpu[key])
+            log(f"[ofit] card vs CPU {key}: {metrics[key]:.6g} / "
+                f"{cpu[key]:.6g}, |diff| {diff:.2e} (tol {atol:g} + "
+                f"{rtol:g} * |cpu|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(key)
+        log(f"[ofit] the CPU's evaluate {time.perf_counter() - t0:.1f} s")
+        if bad:
+            raise AssertionError(f"phase 51 card vs CPU: {bad}")
+
+        # the bf16 flow A/B on the same weights
+        k1_before = fa.launches
+        with kernel_shapes() as seen_bf16:
+            bf16 = bf16_cli.evaluate(wd, device=device)
+        log(f"[ofit] {card} | eval_bf16_flow {bf16}, K1 "
+            f"{fa.launches - k1_before} ({seen_bf16['k1']})")
+        if cuda and not any(k[-1] == "bf16" for k in seen_bf16["k1"]):
+            raise AssertionError("phase 51: the bf16 flow did not run K1 "
+                                 "in bf16")
+        if not bf16["latent_rel_err"] < 0.05:
+            raise AssertionError(f"phase 51 bf16 flow: {bf16}")
+
+        # the LM stage again at --lm_hidden 64 (heads of 16), every other
+        # stage's outputs copied (stage-level resume skips them)
+        wd16 = root / "w16"
+        shutil.copytree(wd / "corpus", wd16 / "corpus")
+        shutil.copytree(wd / "model", wd16 / "model",
+                        ignore=shutil.ignore_patterns("llm.npz"))
+        shutil.copytree(wd / "exp_flow", wd16 / "exp_flow",
+                        ignore=shutil.ignore_patterns("ckpt"))
+        stages16 = {}
+        fa.launches = 0
+        splash.launches.update(forward=0, backward=0)
+        with kernel_shapes() as seen16:
+            metrics16 = ofp.run(wd16, config=str(repo / config),
+                                device=device, stats=stages16, lm_hidden=64,
+                                **{**budget, "llm_epochs": lm16_epochs})
+        k2_16 = dict(splash.launches)
+        st = stages16["train_llm"]
+        k2_want = lm16_epochs * per_lm_step if cuda else 0
+        vals = logged(wd16 / "exp_llm/llm_metrics.jsonl", "loss")
+        log(f"[ofit] {card} | --lm_hidden 64: stages {sorted(stages16)}, "
+            f"train_llm {st['s']:.2f} s, K2 {st['k2_fwd']} + "
+            f"{st['k2_bwd']} (expected {k2_want} each), loss logged "
+            f"{[round(v, 4) for v in vals]}, token_match "
+            f"{metrics16['token_match']:.4f}")
+        if set(stages16) != {"train_llm", "evaluate"} \
+                or (st["k2_fwd"], st["k2_bwd"]) != (k2_want, k2_want) \
+                or len(vals) < 2 or not vals[-1] < vals[0]:
+            raise AssertionError(f"phase 51 --lm_hidden 64: {stages16}, "
+                                 f"loss {vals}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"stages": stages, "metrics": metrics, "cpu_metrics": cpu,
+           "bf16": bf16, "metrics_lm16": metrics16, "kernels": []}
+    if not cuda:
+        return out
+
+    # every launch of the chain at the head dims its shapes have
+    def by_dim(counts, d):
+        return sum(n for key, n in counts.items() if key[3] == d)
+    if by_dim(seen["k1"], 8) != k1_total \
+            or 2 * by_dim(seen["k2"], 8) != sum(k2_total.values()) \
+            or 2 * by_dim(seen16["k2"], 16) != sum(k2_16.values()):
+        raise AssertionError(f"phase 51 head dims: K1 {seen['k1']}, K2 "
+                             f"{seen['k2']}, {seen16['k2']}")
+    log(f"[ofit] shapes: K1 {seen['k1']}; K2 {seen['k2']}; K2 at "
+        f"--lm_hidden 64 {seen16['k2']}")
+    # each kernel against its plain version at the shapes, key lengths
+    # and masks that the chain gave it
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    errs = path_agreement(seen, gen)
+    errs["k2"].update(path_agreement(seen16, gen)["k2"])
+
+    # times at the path's shapes, as phases 3 and 6 take them
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    # each at its most launched shape, with that shape's most launched key
+    # lengths: K1 at the evaluation's flow draws, K2 at each training path's
+    def most(cases, key):
+        return max((c for c in cases if c[0] == key), key=cases.get)[1]
+    k1_key = max(seen["k1"], key=seen["k1"].get)
+    k1_rec = k1_timing(gen, k1_key[:4], most(seen["k1_cases"], k1_key))
+    entries = [{"name": "flash_attention_d8", "route": "cuda",
+                "source": "minimax_speech_torch/csrc/flash_attention.cu",
+                "replaces": "minimax_speech_tpu/kernels/flash_attention.py:114",
+                "launches": k1_total,
+                "max_abs_err": max(errs["k1"].values()), **k1_rec}]
+    for name, counts in (
+            ("splash_attention_d8_flow", {k: n for k, n in seen["k2"].items()
+                                          if k[1] == u.num_heads}),
+            ("splash_attention_d8_lm", {k: n for k, n in seen["k2"].items()
+                                        if k[1] == cfg.lm.qwen.n_heads}),
+            ("splash_attention_d16_lm", seen16["k2"])):
+        key = max(counts, key=counts.get)
+        kv = most(seen16["k2_cases"] if "d16" in name else seen["k2_cases"],
+                  key)
+        mode = "full" if "flow" in name else "causal"
+        rec = k2_timing(gen, key[:4], kv, mode)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "minimax_speech_torch/csrc/splash_attention.cu",
+            "replaces": "minimax_speech_tpu/kernels/splash.py:92",
+            "launches": 2 * sum(counts.values()),
+            "max_abs_err": errs["k2"][key[:4]], **rec})
+    out["kernels"] = entries
+    return out
+
+
 def tf32_off():
     """fp32 matmuls and convolutions without TF32, in this process (the
     main one, or a rank of phases 32-33's gang)."""
@@ -6512,7 +6855,7 @@ def tf32_off():
     torch.backends.cudnn.allow_tf32 = False
 
 
-# phases 5 and 8-50 run in STREAMS: three processes at once on the one
+# phases 5 and 8-51 run in STREAMS: three processes at once on the one
 # card (this one and two workers), each a list of phases in order, once
 # the quiet phases 1-4, 6 and 7 have given the kernels line its times.
 # Their own times carry the other streams' load on the card and the host;
@@ -6687,8 +7030,9 @@ def stream_synthesis(card: str, shared: dict) -> dict:
 
 def stream_lm_train(card: str, shared: dict) -> dict:
     """Phases 8 and 9 (the LM's training CLI, card vs CPU), 28-31 (remat,
-    DPO) and 32-34 (training over two ranks). `shared["lm_off"]` is phase
-    7's remat-off record."""
+    DPO), 32-34 (training over two ranks) and 51 (the learn-and-speak
+    path, whose kernel entries it returns under "kernels").
+    `shared["lm_off"]` is phase 7's remat-off record."""
     import torch
 
     from minimax_speech_torch.infer.pipeline import TTSConfig
@@ -6773,7 +7117,9 @@ def stream_lm_train(card: str, shared: dict) -> dict:
             gang.close()
             initial.unlink(missing_ok=True)
     launch_rec = launch_phase(card, backend)
-    phase_time(34, t0)
+    t0 = phase_time(34, t0)
+    ofit = overfit_phase(card)
+    phase_time(51, t0)
 
     # totals over the timed steps, as lm_train's; per step beside them
     runs = {f"lm_train_remat_{m}": r for m, r in remat_rec.items()}
@@ -6793,7 +7139,7 @@ def stream_lm_train(card: str, shared: dict) -> dict:
         launch_rec["per_step"]
     k2["dist_step_s_per_rank"] = {**dist_lm["step_s"],
                                   **dist_flow["step_s"]}
-    return {"record": {}, "k2": k2}
+    return {"record": {}, "k2": k2, "kernels": ofit["kernels"]}
 
 
 def stream_flow_gan(card: str, shared: dict) -> dict:
@@ -7059,15 +7405,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = phase_time(7, t0)
 
+    extra = []  # phase 51's entries: the kernels at head dims 8 and 16
     for update in run_streams(card, {"lm_off": {
             "step_s": lm_rec["step_s"], "peak_gib": lm_rec["peak_gib"],
             "busy_ms": lm_rec["busy_ms"], "launches": lm_rec["launches"],
             "per_step": lm_rec["launches_per_step"]}}):
         merge(record, update["record"])
         merge(k2, update["k2"])
+        extra += update.get("kernels", [])
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record, k2]}))
+    print(json.dumps({"kernels": [record, k2, *extra]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -20,11 +20,15 @@
 // the chunk's element 2t, column t+4 element 2t+1, so the B operand reads
 // rows 2t and 2t+1 of its tile.
 //
-// Tiles are 64 rows of 64 values in shared memory in the input's type:
-// bf16 is converted to fp32 at the fragment load. Rows are padded to 68
-// floats or 72 bf16 values (16-byte aligned rows for cp.async), so that
-// the row reads (lane g reads row g, column t) and the column reads (lane
-// reads rows 2t, 2t+1, column g) of a warp hit 32 distinct banks.
+// The head dim D is a template parameter, one of kHeadDims (8, 16, 64).
+// Tiles are 64 rows of D values in shared memory in the input's type:
+// bf16 is converted to fp32 at the fragment load. Rows are padded
+// (Tile::kStride: 68, 20, 12 floats or 72, 24, 8 bf16 values for D = 64,
+// 16, 8; 16-byte aligned rows for cp.async), so that the row reads (lane g
+// reads row g, column t) and the column reads (lane reads rows 2t, 2t+1,
+// column g) of a warp hit 32 distinct banks, or one 4-byte word twice.
+// A row is D / 8 k-steps of the products that contract over D (Q K^T, dO
+// V^T) and D / 8 n-tiles of those that make D columns (P V, dS K, ...).
 // Rows at or past the sequence's end are zero-filled by the copy.
 
 #pragma once
@@ -37,7 +41,6 @@
 
 namespace attn {
 
-constexpr int kD = 64;             // head dim
 constexpr int kTile = 64;          // rows of a query or key tile
 constexpr int kWarpRows = 16;      // rows of one warp's products
 constexpr int kGroupThreads = 128; // 4 warps: the rows of one tile
@@ -46,12 +49,34 @@ constexpr float kNegInf = -1e30f;
 // tiles of shared memory attention_forward takes with kSplit key groups
 constexpr int forward_tiles(int split) { return 1 + 4 * split; }
 
-template <typename T>
+// Calls f(std::integral_constant<int, D>()) for head_dim D of the
+// instantiated set (8, 16, 64); any other head_dim returns
+// cudaErrorInvalidValue and launches nothing.
+template <typename F>
+inline cudaError_t with_head_dim(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 8:
+      return f(std::integral_constant<int, 8>());
+    case 16:
+      return f(std::integral_constant<int, 16>());
+    case 64:
+      return f(std::integral_constant<int, 64>());
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int D>
 struct Tile {
+  static_assert(D == 8 || D == 16 || D == 64, "head dims 8, 16 and 64");
   static constexpr bool kFloat = std::is_same<T, float>::value;
-  static constexpr int kStride = kFloat ? 68 : 72;  // elements per row
+  // elements per row: D + 4 floats, D + 8 bf16 values, or 8 bf16 values at
+  // D = 8 (4 words a row already spread a warp's reads over the banks)
+  static constexpr int kStride = kFloat ? D + 4 : (D == 8 ? 8 : D + 8);
   static constexpr int kElems = kTile * kStride;
   static constexpr int kChunk = 16 / sizeof(T);     // elements per copy
+  static_assert(D % kChunk == 0 && (kStride * sizeof(T)) % 16 == 0,
+                "rows of whole 16-byte copies");
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -108,18 +133,19 @@ __device__ __forceinline__ void group_sync(int group) {
   }
 }
 
-// rows row0 .. row0 + 63 of a (seq, 64) matrix into a tile, by the
+// rows row0 .. row0 + 63 of a (seq, D) matrix into a tile, by the
 // `n_threads` threads numbered `tid` from 0
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           int seq, int tid, int n_threads) {
-  constexpr int kPerRow = kD / Tile<T>::kChunk;
+  using Tl = Tile<T, D>;
+  constexpr int kPerRow = D / Tl::kChunk;
   for (int i = tid; i < kTile * kPerRow; i += n_threads) {
     const int r = i / kPerRow;
-    const int c = (i % kPerRow) * Tile<T>::kChunk;
+    const int c = (i % kPerRow) * Tl::kChunk;
     const int g = row0 + r;
-    cp_async16(dst + r * Tile<T>::kStride + c,
-               src + static_cast<size_t>(min(g, seq - 1)) * kD + c,
+    cp_async16(dst + r * Tl::kStride + c,
+               src + static_cast<size_t>(min(g, seq - 1)) * D + c,
                g < seq ? 16 : 0);
   }
 }
@@ -175,18 +201,18 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma(d, ah, bh);
 }
 
-// acc[n] += A B_n^T over the 64 columns: A is the 16 rows of tile `a`
+// acc[n] += A B_n^T over the D columns: A is the 16 rows of tile `a`
 // from `a` on, B_n rows 8n .. 8n+7 of tile `b` (S = Q K^T, dP = dO V^T,
 // and their transposes in the backward)
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void mma_rows(float (&acc)[8][4], const T* a,
                                          const T* b, int g, int t) {
-  constexpr int S = Tile<T>::kStride;
-  constexpr bool kSplit = Tile<T>::kFloat;
+  constexpr int S = Tile<T, D>::kStride;
+  constexpr bool kSplit = Tile<T, D>::kFloat;
   // a rolled loop: unrolled, the backward ran 1.09x slower on an H100
   // (kernels/variants.py)
 #pragma unroll 1
-  for (int kk = 0; kk < kD / 8; ++kk) {
+  for (int kk = 0; kk < D / 8; ++kk) {
     const int c = 8 * kk + t;
     uint32_t ah[4], al[4];
     split<kSplit>(to_f(a[g * S + c]), ah[0], al[0]);
@@ -203,16 +229,17 @@ __device__ __forceinline__ void mma_rows(float (&acc)[8][4], const T* a,
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 }
 
-// acc[n] += P B[:, 8n .. 8n+7], P (16 x 64) an fp32 accumulator in C
-// layout, B the 64 rows of tile `b` (O += P V, dV += P^T dO,
-// dK += dS^T Q, dQ += dS K).
+// acc[n] += P B[:, 8n .. 8n+7] for the N = D / 8 n-tiles of B's D
+// columns, P (16 x 64) an fp32 accumulator in C layout, B the 64 rows of
+// tile `b` (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K).
 // The tensor cores add each product into the accumulator they are given
 // with a long fp32 sum of their own, which rounds worse than an FADD:
 // chained over every key tile of a row, it put the forward's O 7.4e-6
@@ -223,14 +250,15 @@ __device__ __forceinline__ void zero(float (&acc)[8][4]) {
 // added to acc by FADDs, so no tensor-core sum spans more than one key
 // tile. K2's forward O takes it; the backward's products, whose sums
 // span fewer tiles, and K1 keep the chained form.
-template <bool kTileSum = false, typename T>
-__device__ __forceinline__ void mma_acc(float (&acc)[8][4],
+template <bool kTileSum = false, int N, typename T>
+__device__ __forceinline__ void mma_acc(float (&acc)[N][4],
                                         const float (&p)[8][4], const T* b,
                                         int g, int t) {
-  constexpr int S = Tile<T>::kStride;
-  float part[8][4];
+  using Tl = Tile<T, 8 * N>;
+  constexpr int S = Tl::kStride;
+  float part[N][4];
   if (kTileSum) zero(part);
-  float(&d)[8][4] = kTileSum ? part : acc;
+  float(&d)[N][4] = kTileSum ? part : acc;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     uint32_t ah[4], al[4];
@@ -240,16 +268,16 @@ __device__ __forceinline__ void mma_acc(float (&acc)[8][4],
     split<true>(p[j][3], ah[3], al[3]);
     const T* r0 = b + (8 * j + 2 * t) * S + g;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < N; ++n) {
       uint32_t bh[2], bl[2];
-      split<Tile<T>::kFloat>(to_f(r0[8 * n]), bh[0], bl[0]);
-      split<Tile<T>::kFloat>(to_f(r0[S + 8 * n]), bh[1], bl[1]);
-      mma3<true, Tile<T>::kFloat>(d[n], ah, al, bh, bl);
+      split<Tl::kFloat>(to_f(r0[8 * n]), bh[0], bl[0]);
+      split<Tl::kFloat>(to_f(r0[S + 8 * n]), bh[1], bl[1]);
+      mma3<true, Tl::kFloat>(d[n], ah, al, bh, bl);
     }
   }
   if (kTileSum) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < N; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
   }
@@ -272,13 +300,14 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // One key tile of the online softmax: s = scale * S, masked; the rows'
-// maxima m move, the lane's partial row sums l and the output o rescale,
-// and s becomes P = exp(s - m) (0 where masked).
+// maxima m move, the lane's partial row sums l and the output o (N = D / 8
+// n-tiles) rescale, and s becomes P = exp(s - m) (0 where masked).
+template <int N>
 __device__ __forceinline__ void online_softmax(float (&s)[8][4], int k0,
                                                const int (&lo)[2],
                                                const int (&hi)[2], float scale,
                                                float (&m)[2], float (&l)[2],
-                                               float (&o)[8][4], int t) {
+                                               float (&o)[N][4], int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float mx = kNegInf;
@@ -305,7 +334,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], int k0,
     l[i] = l[i] * alpha + sum;
     m[i] = m_new;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < N; ++n) {
       o[n][2 * i] *= alpha;
       o[n][2 * i + 1] *= alpha;
     }
@@ -315,20 +344,22 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], int k0,
 // The masked forward pass of one 64-row query tile from q0: O =
 // softmax(scale Q K^T) V with row q seeing the keys of
 // mask.row_span(q, lo, hi), and, when lse is not null, the rows' fp32
-// logsumexp. q, k, v, out point at one (seq, 64) head. The block has
+// logsumexp. q, k, v, out point at one (seq, D) head. The block has
 // kSplit groups of 4 warps: warp w of a group owns rows q0 + 16 (w % 4)
 // and group j takes key tiles j, j + kSplit, ... of the range the tile's
 // rows reach, each group with its own double-buffered K and V; the
 // groups' (m, l, O) are combined at the end. kTileSum: O += P V as
 // mma_acc<true> sums it, one zeroed fragment per key tile.
 // The shared memory holds forward_tiles(kSplit) tiles.
-template <typename T, int kSplit, bool kTileSum, typename Mask>
+template <typename T, int D, int kSplit, bool kTileSum, typename Mask>
 __device__ __forceinline__ void attention_forward(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
     const Mask& mask, int seq, int q0, float scale, T* smem) {
   static_assert(kSplit == 1 || kSplit == 2, "one or two key groups");
-  constexpr int E = Tile<T>::kElems;
+  using Tl = Tile<T, D>;
+  constexpr int E = Tl::kElems;
+  constexpr int N = D / 8;  // n-tiles of an output row
   const int tid = threadIdx.x;
   const int group = tid / kGroupThreads;
   const int warp = (tid % kGroupThreads) / 32;
@@ -353,33 +384,34 @@ __device__ __forceinline__ void attention_forward(
   const int first = (k_lo / kTile) * kTile;
   const int n_tiles = k_hi > first ? (k_hi - first + kTile - 1) / kTile : 0;
 
-  load_tile(qs, q, q0, seq, tid, kSplit * kGroupThreads);
+  load_tile<D>(qs, q, q0, seq, tid, kSplit * kGroupThreads);
   const int gtid = tid % kGroupThreads;
   if (group < n_tiles) {
-    load_tile(kv, k, first + group * kTile, seq, gtid, kGroupThreads);
-    load_tile(kv + E, v, first + group * kTile, seq, gtid, kGroupThreads);
+    load_tile<D>(kv, k, first + group * kTile, seq, gtid, kGroupThreads);
+    load_tile<D>(kv + E, v, first + group * kTile, seq, gtid, kGroupThreads);
   }
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[8][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[N][4];
   zero(o);
-  const T* qw = qs + warp * kWarpRows * Tile<T>::kStride;
+  const T* qw = qs + warp * kWarpRows * Tl::kStride;
   int stage = 0;
   for (int i = group; i < n_tiles; i += kSplit, stage ^= 1) {
     const int k0 = first + i * kTile;
     if (i + kSplit < n_tiles) {  // the next tile streams in meanwhile
       T* nxt = kv + (stage ^ 1) * 2 * E;
-      load_tile(nxt, k, k0 + kSplit * kTile, seq, gtid, kGroupThreads);
-      load_tile(nxt + E, v, k0 + kSplit * kTile, seq, gtid, kGroupThreads);
+      load_tile<D>(nxt, k, k0 + kSplit * kTile, seq, gtid, kGroupThreads);
+      load_tile<D>(nxt + E, v, k0 + kSplit * kTile, seq, gtid,
+                   kGroupThreads);
     }
     cp_async_commit();
     if (k0 < w_hi && k0 + kTile > w_lo) {
       const T* ks = kv + stage * 2 * E;
       float s[8][4];
       zero(s);
-      mma_rows(s, qw, ks, g, t);
+      mma_rows<D>(s, qw, ks, g, t);
       online_softmax(s, k0, lo, hi, scale, m, l, o, t);
       mma_acc<kTileSum>(o, s, ks + E, g, t);
     }
@@ -389,7 +421,10 @@ __device__ __forceinline__ void attention_forward(
 
   if (kSplit == 2) {
     // group 1 hands its (m, l, O) to group 0 through the K/V buffers
-    constexpr int kVals = 4 + 32;
+    constexpr int kVals = 4 + 4 * N;
+    static_assert(4 * kVals * 32 * sizeof(float) <=
+                      4 * kSplit * E * sizeof(T),
+                  "the hand-over fits the K/V buffers");
     __syncthreads();
     float* buf = reinterpret_cast<float*>(smem + E) +
                  warp * kVals * 32 + lane;
@@ -400,7 +435,7 @@ __device__ __forceinline__ void attention_forward(
         buf[(2 + i) * 32] = l[i];
       }
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < N; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) buf[(4 + 4 * n + e) * 32] = o[n][e];
     }
@@ -414,7 +449,7 @@ __device__ __forceinline__ void attention_forward(
       l[i] = l[i] * a0 + buf[(2 + i) * 32] * a1;
       m[i] = m_new;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < N; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           o[n][2 * i + e] =
@@ -428,9 +463,9 @@ __device__ __forceinline__ void attention_forward(
     const float sum = fmaxf(quad_sum(l[i]), 1e-30f);
     if (row >= seq) continue;
     const float inv = 1.f / sum;
-    T* dst = out + static_cast<size_t>(row) * kD + 2 * t;
+    T* dst = out + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < N; ++n)
       store_pair(dst + 8 * n, o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
     if (lse != nullptr && t == 0) lse[row] = m[i] + logf(sum);
   }

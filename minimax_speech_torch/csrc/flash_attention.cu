@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel minimax_speech_tpu/kernels/flash_attention.py
 // (flash_attention, body _attn_kernel): out = softmax(Q K^T / sqrt(d)) V over
-// (B, H, T, D) with an fp32 online softmax. Query q sees key k iff
+// (B, H, T, D), D one of 8, 16 and 64 (a template parameter: the UNet at
+// configs/default.yaml's widths takes 64, configs/tiny.yaml's 8), with an
+// fp32 online softmax. Query q sees key k iff
 //   k < kv_len[b]                                  (pad)
 //   k <= q                                         (causal)
 //   k < (q / chunk + 1) * chunk                    (chunk > 0)
@@ -43,7 +45,6 @@
 
 namespace {
 
-using attn::kD;
 using attn::kGroupThreads;
 using attn::kTile;
 using attn::Tile;
@@ -65,12 +66,12 @@ struct K1Mask {
   }
 };
 
-template <typename T>
+template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return attn::forward_tiles(kSplit) * Tile<T>::kElems * sizeof(T);
+  return attn::forward_tiles(kSplit) * Tile<T, D>::kElems * sizeof(T);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const int* __restrict__ kv_len,
@@ -78,25 +79,25 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
          int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int bh = blockIdx.y;
-  const size_t base = static_cast<size_t>(bh) * seq * kD;
+  const size_t base = static_cast<size_t>(bh) * seq * D;
   const K1Mask mask{max(0, min(kv_len[bh / heads], seq)), chunk, left_chunks,
                     causal};
-  attn::attention_forward<T, kSplit, false>(
+  attn::attention_forward<T, D, kSplit, false>(
       q + base, k + base, v + base, out + base, nullptr, mask, seq,
       blockIdx.x * kTile, scale, reinterpret_cast<T*>(smem));
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_len, void* out, int batch, int heads, int seq,
                    int chunk, int left_chunks, int causal, float scale,
                    cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<T>());
+      attn_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<T, D>());
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
-  attn_fwd<T><<<grid, kThreads, smem_bytes<T>(), s>>>(
+  attn_fwd<T, D><<<grid, kThreads, smem_bytes<T, D>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<T*>(out), heads, seq,
       chunk, left_chunks, causal, scale);
@@ -105,8 +106,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, out: contiguous (batch, heads, seq, head_dim); kv_len: int32
-// (batch,) on the device; dtype: 0 = float32, 1 = bfloat16. Launches on
+// q, k, v, out: contiguous (batch, heads, seq, head_dim), head_dim 8, 16 or
+// 64 (else cudaErrorInvalidValue); kv_len: int32 (batch,) on the device;
+// dtype: 0 = float32, 1 = bfloat16. Launches on
 // `stream` and returns cudaGetLastError() (0 when the launch was taken).
 extern "C" int mmst_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, const int* kv_len,
@@ -114,17 +116,18 @@ extern "C" int mmst_flash_attention_fwd(const void* q, const void* k,
                                         int seq, int head_dim, int chunk,
                                         int left_chunks, int causal, int dtype,
                                         void* stream) {
-  if (head_dim != kD || seq <= 0 || batch <= 0 || heads <= 0 ||
-      (dtype != 0 && dtype != 1)) {
+  if (seq <= 0 || batch <= 0 || heads <= 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float scale = 1.0f / sqrtf(static_cast<float>(head_dim));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 1 ? launch<__nv_bfloat16>(q, k, v, kv_len, out, batch, heads,
-                                         seq, chunk, left_chunks, causal,
-                                         scale, s)
-                 : launch<float>(q, k, v, kv_len, out, batch, heads, seq,
-                                 chunk, left_chunks, causal, scale, s);
-  return static_cast<int>(err);
+  return static_cast<int>(attn::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return dtype == 1
+               ? launch<__nv_bfloat16, D>(q, k, v, kv_len, out, batch, heads,
+                                          seq, chunk, left_chunks, causal,
+                                          scale, s)
+               : launch<float, D>(q, k, v, kv_len, out, batch, heads, seq,
+                                  chunk, left_chunks, causal, scale, s);
+  }));
 }

@@ -4,7 +4,9 @@
 // minimax_speech_tpu/kernels/splash.py:92 (splash_chunk_attention, and
 // splash_causal_attention at :138, which is chunk 1 with no left bound)
 // configures: forward and backward of out = softmax(Q K^T) V over
-// (B, H, T, D), D = 64, where Q arrives with the 1/sqrt(d) scale already
+// (B, H, T, D), D one of 8, 16 and 64 (a template parameter: the LM at
+// configs/default.yaml's widths takes 64, the tiny LM and UNet of
+// configs/tiny.yaml 8, and a 64-wide tiny LM 16), where Q arrives with the 1/sqrt(d) scale already
 // folded in (the wrapper does that, in Q's dtype, as JAX does). Query q of
 // sample b sees key k iff
 //   k <  min((q / chunk + 1) * chunk, T)            (chunk > 0)
@@ -61,7 +63,6 @@
 
 namespace {
 
-using attn::kD;
 using attn::kGroupThreads;
 using attn::kTile;
 using attn::kWarpRows;
@@ -152,21 +153,22 @@ __device__ __forceinline__ void probs_and_dscores(
     }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[8][4],
+// the warp's 16 rows of a (seq, 8 N) accumulator from r0, clipped to seq
+template <int N, typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[N][4],
                                            int r0, int seq, int g, int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + g + 8 * i;
     if (row >= seq) continue;
-    T* p = dst + static_cast<size_t>(row) * kD + 2 * t;
+    T* p = dst + static_cast<size_t>(row) * (8 * N) + 2 * t;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < N; ++n)
       attn::store_pair(p + 8 * n, acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kGroupThreads, 1)
 splash_fwd(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const int* __restrict__ kv_len,
@@ -174,22 +176,26 @@ splash_fwd(const T* __restrict__ q, const T* __restrict__ k,
            int chunk, int left) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int bh = blockIdx.y;
-  const size_t base = static_cast<size_t>(bh) * seq * kD;
+  const size_t base = static_cast<size_t>(bh) * seq * D;
   const Mask m = make_mask(kv_len, bh / heads, seq, chunk, left);
-  attn::attention_forward<T, 1, true>(
+  attn::attention_forward<T, D, 1, true>(
       q + base, k + base, v + base, out + base,
       lse + static_cast<size_t>(bh) * seq, m, seq, blockIdx.x * kTile, 1.0f,
       reinterpret_cast<T*>(smem));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kGroupThreads)
+// The backward kernels, like the forward, say one block per SM at least:
+// told only the thread count, ptxas kept splash_dq<bf16, 8> at 96
+// registers and spilled 8 bytes.
+template <typename T, int D>
+__global__ void __launch_bounds__(kGroupThreads, 1)
 splash_dkdv(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const int* __restrict__ kv_len,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, T* __restrict__ dk,
             T* __restrict__ dv, int heads, int seq, int chunk, int left) {
-  constexpr int E = Tile<T>::kElems;
+  using Tl = Tile<T, D>;
+  constexpr int E = Tl::kElems;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   T* ks = smem;
@@ -203,7 +209,7 @@ splash_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const size_t base = static_cast<size_t>(bh) * seq * kD;
+  const size_t base = static_cast<size_t>(bh) * seq * D;
   const size_t row_base = static_cast<size_t>(bh) * seq;
 
   // queries that see the block's keys, this warp's keys, each row's key
@@ -217,11 +223,11 @@ splash_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int first = (q_lo / kTile) * kTile;
   const int n_tiles = q_hi > first ? (q_hi - first + kTile - 1) / kTile : 0;
 
-  attn::load_tile(ks, k + base, k0, seq, tid, kGroupThreads);
-  attn::load_tile(vs, v + base, k0, seq, tid, kGroupThreads);
+  attn::load_tile<D>(ks, k + base, k0, seq, tid, kGroupThreads);
+  attn::load_tile<D>(vs, v + base, k0, seq, tid, kGroupThreads);
   if (n_tiles > 0) {
-    attn::load_tile(qd, q + base, first, seq, tid, kGroupThreads);
-    attn::load_tile(qd + E, dout + base, first, seq, tid, kGroupThreads);
+    attn::load_tile<D>(qd, q + base, first, seq, tid, kGroupThreads);
+    attn::load_tile<D>(qd + E, dout + base, first, seq, tid, kGroupThreads);
     attn::load_rows(rows, lse + row_base, first, seq, tid);
     attn::load_rows(rows + kTile, delta + row_base, first, seq, tid);
   }
@@ -229,11 +235,11 @@ splash_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   attn::cp_async_wait_all();
   __syncthreads();
 
-  float acc_dk[8][4], acc_dv[8][4];
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
   attn::zero(acc_dk);
   attn::zero(acc_dv);
-  const T* kw = ks + warp * kWarpRows * Tile<T>::kStride;
-  const T* vw = vs + warp * kWarpRows * Tile<T>::kStride;
+  const T* kw = ks + warp * kWarpRows * Tl::kStride;
+  const T* vw = vs + warp * kWarpRows * Tl::kStride;
   const float none[2] = {0.f, 0.f};
   int stage = 0;
   for (int i = 0; i < n_tiles; ++i, stage ^= 1) {
@@ -241,9 +247,9 @@ splash_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     if (i + 1 < n_tiles) {  // the next query tile streams in meanwhile
       T* nxt = qd + (stage ^ 1) * 2 * E;
       float* nrows = rows + (stage ^ 1) * 2 * kTile;
-      attn::load_tile(nxt, q + base, q0 + kTile, seq, tid, kGroupThreads);
-      attn::load_tile(nxt + E, dout + base, q0 + kTile, seq, tid,
-                      kGroupThreads);
+      attn::load_tile<D>(nxt, q + base, q0 + kTile, seq, tid, kGroupThreads);
+      attn::load_tile<D>(nxt + E, dout + base, q0 + kTile, seq, tid,
+                         kGroupThreads);
       attn::load_rows(nrows, lse + row_base, q0 + kTile, seq, tid);
       attn::load_rows(nrows + kTile, delta + row_base, q0 + kTile, seq, tid);
     }
@@ -255,8 +261,8 @@ splash_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       float s[8][4], dp[8][4];
       attn::zero(s);
       attn::zero(dp);
-      attn::mma_rows(s, kw, qs, g, t);    // S^T = K Q^T
-      attn::mma_rows(dp, vw, dos, g, t);  // dP^T = V dO^T
+      attn::mma_rows<D>(s, kw, qs, g, t);    // S^T = K Q^T
+      attn::mma_rows<D>(dp, vw, dos, g, t);  // dP^T = V dO^T
       probs_and_dscores<true>(s, dp, q0, lo, hi, none, none, ls, ls + kTile,
                               t);
       attn::mma_acc(acc_dv, s, dos, g, t);  // dV += P^T dO
@@ -270,14 +276,15 @@ splash_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   store_rows(dv + base, acc_dv, r0, seq, g, t);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kGroupThreads)
+template <typename T, int D>
+__global__ void __launch_bounds__(kGroupThreads, 1)
 splash_dq(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ kv_len,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, T* __restrict__ dq, int heads,
           int seq, int chunk, int left) {
-  constexpr int E = Tile<T>::kElems;
+  using Tl = Tile<T, D>;
+  constexpr int E = Tl::kElems;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   T* qs = smem;
@@ -290,7 +297,7 @@ splash_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const size_t base = static_cast<size_t>(bh) * seq * kD;
+  const size_t base = static_cast<size_t>(bh) * seq * D;
   const size_t row_base = static_cast<size_t>(bh) * seq;
 
   int k_lo, k_hi, w_lo, w_hi, lo[2], hi[2];
@@ -308,28 +315,28 @@ splash_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int first = (k_lo / kTile) * kTile;
   const int n_tiles = k_hi > first ? (k_hi - first + kTile - 1) / kTile : 0;
 
-  attn::load_tile(qs, q + base, q0, seq, tid, kGroupThreads);
-  attn::load_tile(dos, dout + base, q0, seq, tid, kGroupThreads);
+  attn::load_tile<D>(qs, q + base, q0, seq, tid, kGroupThreads);
+  attn::load_tile<D>(dos, dout + base, q0, seq, tid, kGroupThreads);
   if (n_tiles > 0) {
-    attn::load_tile(kv, k + base, first, seq, tid, kGroupThreads);
-    attn::load_tile(kv + E, v + base, first, seq, tid, kGroupThreads);
+    attn::load_tile<D>(kv, k + base, first, seq, tid, kGroupThreads);
+    attn::load_tile<D>(kv + E, v + base, first, seq, tid, kGroupThreads);
   }
   attn::cp_async_commit();
   attn::cp_async_wait_all();
   __syncthreads();
 
-  float acc[8][4];
+  float acc[D / 8][4];
   attn::zero(acc);
-  const T* qw = qs + warp * kWarpRows * Tile<T>::kStride;
-  const T* dow = dos + warp * kWarpRows * Tile<T>::kStride;
+  const T* qw = qs + warp * kWarpRows * Tl::kStride;
+  const T* dow = dos + warp * kWarpRows * Tl::kStride;
   int stage = 0;
   for (int i = 0; i < n_tiles; ++i, stage ^= 1) {
     const int k0 = first + i * kTile;
     if (i + 1 < n_tiles) {  // the next key tile streams in meanwhile
       T* nxt = kv + (stage ^ 1) * 2 * E;
-      attn::load_tile(nxt, k + base, k0 + kTile, seq, tid, kGroupThreads);
-      attn::load_tile(nxt + E, v + base, k0 + kTile, seq, tid,
-                      kGroupThreads);
+      attn::load_tile<D>(nxt, k + base, k0 + kTile, seq, tid, kGroupThreads);
+      attn::load_tile<D>(nxt + E, v + base, k0 + kTile, seq, tid,
+                         kGroupThreads);
     }
     attn::cp_async_commit();
     if (k0 < w_hi && k0 + kTile > w_lo) {
@@ -337,8 +344,8 @@ splash_dq(const T* __restrict__ q, const T* __restrict__ k,
       float s[8][4], dp[8][4];
       attn::zero(s);
       attn::zero(dp);
-      attn::mma_rows(s, qw, ks, g, t);        // S = Q K^T
-      attn::mma_rows(dp, dow, ks + E, g, t);  // dP = dO V^T
+      attn::mma_rows<D>(s, qw, ks, g, t);        // S = Q K^T
+      attn::mma_rows<D>(dp, dow, ks + E, g, t);  // dP = dO V^T
       probs_and_dscores<false>(s, dp, k0, lo, hi, row_lse, row_delta,
                                nullptr, nullptr, t);
       attn::mma_acc(acc, dp, ks, g, t);  // dQ += dS K
@@ -350,61 +357,62 @@ splash_dq(const T* __restrict__ q, const T* __restrict__ k,
   store_rows(dq + base, acc, r0, seq, g, t);
 }
 
-template <typename T>
+template <typename T, int D>
 constexpr size_t fwd_smem() {
-  return attn::forward_tiles(1) * Tile<T>::kElems * sizeof(T);
+  return attn::forward_tiles(1) * Tile<T, D>::kElems * sizeof(T);
 }
-template <typename T>
+template <typename T, int D>
 constexpr size_t dkdv_smem() {
-  return 6 * Tile<T>::kElems * sizeof(T) + 4 * kTile * sizeof(float);
+  return 6 * Tile<T, D>::kElems * sizeof(T) + 4 * kTile * sizeof(float);
 }
-template <typename T>
+template <typename T, int D>
 constexpr size_t dq_smem() {
-  return 6 * Tile<T>::kElems * sizeof(T);
+  return 6 * Tile<T, D>::kElems * sizeof(T);
 }
 
-bool bad_args(int batch, int heads, int seq, int head_dim, int dtype) {
-  return head_dim != kD || seq <= 0 || batch <= 0 || heads <= 0 ||
-         (dtype != 0 && dtype != 1);
+// head_dim is checked by attn::with_head_dim
+bool bad_args(int batch, int heads, int seq, int dtype) {
+  return seq <= 0 || batch <= 0 || heads <= 0 || (dtype != 0 && dtype != 1);
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, const int* kv_len,
                 void* out, float* lse, int batch, int heads, int seq,
                 int chunk, int left, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      splash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      fwd_smem<T>());
+      splash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_smem<T, D>());
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
-  splash_fwd<T><<<grid, kGroupThreads, fwd_smem<T>(), s>>>(
+  splash_fwd<T, D><<<grid, kGroupThreads, fwd_smem<T, D>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<T*>(out), lse, heads, seq,
       chunk, left);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t bwd(const void* q, const void* k, const void* v, const int* kv_len,
                 const void* dout, const float* lse, const float* delta,
                 void* dq, void* dk, void* dv, int batch, int heads, int seq,
                 int chunk, int left, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      splash_dkdv<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkdv_smem<T>());
+      splash_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_smem<T, D>());
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      splash_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<T>());
+  err = cudaFuncSetAttribute(splash_dq<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_smem<T, D>());
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
-  splash_dkdv<T><<<grid, kGroupThreads, dkdv_smem<T>(), s>>>(
+  splash_dkdv<T, D><<<grid, kGroupThreads, dkdv_smem<T, D>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<const T*>(dout), lse,
       delta, static_cast<T*>(dk), static_cast<T*>(dv), heads, seq, chunk,
       left);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  splash_dq<T><<<grid, kGroupThreads, dq_smem<T>(), s>>>(
+  splash_dq<T, D><<<grid, kGroupThreads, dq_smem<T, D>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<const T*>(dout), lse,
       delta, static_cast<T*>(dq), heads, seq, chunk, left);
@@ -414,8 +422,8 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const int* kv_len,
 }  // namespace
 
 // All tensors contiguous on the device. q, k, v, out, dout, dq, dk, dv:
-// (batch, heads, seq, head_dim) in dtype (0 = float32, 1 = bfloat16), q
-// already scaled; lse, delta: float32 (batch, heads, seq); kv_len: int32
+// (batch, heads, seq, head_dim) in dtype (0 = float32, 1 = bfloat16),
+// head_dim 8, 16 or 64 (else cudaErrorInvalidValue), q already scaled; lse, delta: float32 (batch, heads, seq); kv_len: int32
 // (batch,). chunk 0 means no chunk predicate (full); left_chunks < 0 no
 // left bound. Each launches on `stream` and returns cudaGetLastError()
 // (0 when every launch was taken).
@@ -424,15 +432,17 @@ extern "C" int mmst_splash_fwd(const void* q, const void* k, const void* v,
                                int batch, int heads, int seq, int head_dim,
                                int chunk, int left_chunks, int dtype,
                                void* stream) {
-  if (bad_args(batch, heads, seq, head_dim, dtype))
+  if (bad_args(batch, heads, seq, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 1 ? fwd<__nv_bfloat16>(q, k, v, kv_len, out, lse, batch, heads,
-                                      seq, chunk, left_chunks, s)
-                 : fwd<float>(q, k, v, kv_len, out, lse, batch, heads, seq,
-                              chunk, left_chunks, s);
-  return static_cast<int>(err);
+  return static_cast<int>(attn::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return dtype == 1
+               ? fwd<__nv_bfloat16, D>(q, k, v, kv_len, out, lse, batch,
+                                       heads, seq, chunk, left_chunks, s)
+               : fwd<float, D>(q, k, v, kv_len, out, lse, batch, heads, seq,
+                               chunk, left_chunks, s);
+  }));
 }
 
 extern "C" int mmst_splash_bwd(const void* q, const void* k, const void* v,
@@ -441,14 +451,16 @@ extern "C" int mmst_splash_bwd(const void* q, const void* k, const void* v,
                                void* dk, void* dv, int batch, int heads,
                                int seq, int head_dim, int chunk,
                                int left_chunks, int dtype, void* stream) {
-  if (bad_args(batch, heads, seq, head_dim, dtype))
+  if (bad_args(batch, heads, seq, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 1
-          ? bwd<__nv_bfloat16>(q, k, v, kv_len, dout, lse, delta, dq, dk, dv,
-                               batch, heads, seq, chunk, left_chunks, s)
-          : bwd<float>(q, k, v, kv_len, dout, lse, delta, dq, dk, dv, batch,
-                       heads, seq, chunk, left_chunks, s);
-  return static_cast<int>(err);
+  return static_cast<int>(attn::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return dtype == 1
+               ? bwd<__nv_bfloat16, D>(q, k, v, kv_len, dout, lse, delta, dq,
+                                       dk, dv, batch, heads, seq, chunk,
+                                       left_chunks, s)
+               : bwd<float, D>(q, k, v, kv_len, dout, lse, delta, dq, dk, dv,
+                               batch, heads, seq, chunk, left_chunks, s);
+  }));
 }

@@ -20,7 +20,8 @@ is `fused_batch`, which batched serving runs (infer/serving.py), at B = 1.
 `synthesize` (the unfused path) copies the generated tokens to the host
 between the LM and the flow. Streaming is infer/session.py. With
 `lm.qwen.quantized` the LM's projections are W8A8 (models/qwen2.py), and
-`from_random` gives them random int8 kernels, as bench.py does.
+`from_random` gives them random int8 kernels, as bench.py does. With
+`bf16_flow` the flow runs in bfloat16 on every path (`cast_flow`).
 """
 from __future__ import annotations
 
@@ -66,6 +67,12 @@ class TTSConfig:
     max_speech_tokens: int = 512
     min_token_text_ratio: float = 2.0
     max_token_text_ratio: float = 20.0
+    # the flow stage (encoder, 10-step CFM UNet) in bfloat16: its
+    # parameters are cast once (the speaker encoder's are rounded to
+    # bfloat16 and computed in float32, as the JAX package's promotion
+    # computes them for a float32 mel), its float inputs cast at the flow
+    # boundary, and its latents back to float32 before the codec
+    bf16_flow: bool = False
 
 
 def decode_plan(cfg: TTSConfig, text_tokens, prompt_text_tokens,
@@ -109,6 +116,18 @@ class TTSPipeline:
         self.noise = torch.as_tensor(cfm_mod.make_fixed_noise(
             15000, cfg.flow.output_size)[None], device=self.device)
 
+    def cast_flow(self) -> "TTSPipeline":
+        """With cfg.bf16_flow, the flow's parameters to bfloat16, once,
+        after its weights are in; its speaker encoder keeps the rounded
+        values in float32 (speaker_embedding runs it on a float32 mel, as
+        JAX promotes bfloat16 parameters against a float32 input).
+        models/flow.py casts the flow's float inputs to its dtype."""
+        if self.cfg.bf16_flow:
+            self.flow.to(torch.bfloat16)
+            if self.cfg.flow.use_speaker_encoder:
+                self.flow.speaker_encoder.float()
+        return self
+
     def models(self):
         return {"lm": self.lm, "flow": self.flow,
                 "codec": self.dac if self.hift is None else self.hift,
@@ -138,7 +157,7 @@ class TTSPipeline:
         gen = torch.Generator(device=pipe.device).manual_seed(seed)
         for m in pipe.models().values():
             params_io.init_params(m, gen)
-        return pipe
+        return pipe.cast_flow()
 
     @classmethod
     def from_flax(cls, cfg: TTSConfig, lm_vars, flow_vars, codec_vars,
@@ -150,7 +169,7 @@ class TTSPipeline:
         for m, tree in zip(pipe.models().values(),
                            (lm_vars, flow_vars, codec_vars, s3_vars)):
             params_io.load_flax_params(m, tree)
-        return pipe
+        return pipe.cast_flow()
 
     # -- prompt processing ----------------------------------------------------
     @torch.no_grad()

@@ -23,9 +23,9 @@ it, so a near match is never given in silence.
 Splitting takes the `regex` package with QWEN2_PAT where it imports, else
 `split_qwen2`, a scanner over `unicodedata` that gives regex's pieces.
 Both class characters by the Unicode database of their own build; the
-scanner's is Python's (Unicode 15.0 on Python 3.12), so a character
-assigned after it splits as punctuation where `tokenizers` may see a
-letter or a digit.
+scanner's is Python's (Unicode 15.0 on Python 3.12), corrected by
+infer/qwen_unicode.py's table where `tokenizers` knows a newer Unicode,
+so the scanner splits as `tokenizers` does.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from functools import lru_cache
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from minimax_speech_torch.infer.whisper_tokenizer import _kind
+from minimax_speech_torch.infer.qwen_unicode import qwen_kind
 
 QWEN2_PAT = (r"""(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"""
              r"""|\p{N}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+""")
@@ -68,8 +68,10 @@ def _fold(ch: str) -> str:
 def split_qwen2(text: str) -> List[str]:
     """`regex.findall(QWEN2_PAT, text)` with the standard library: at each
     position the first alternative of QWEN2_PAT that matches, as the
-    regex engine tries them."""
-    kinds = [_kind(c) for c in text]
+    regex engine tries them. A character's class (white space, letter,
+    number, other) is Python's, except where `tokenizers` knows a newer
+    Unicode (infer/qwen_unicode.py)."""
+    kinds = [qwen_kind(c) for c in text]
     n, out, i = len(text), [], 0
 
     def run(j, k):  # end of the run of kind k from j

@@ -82,13 +82,13 @@ class ChunkedFlowSession:
         mu, self._enc_cache = self.flow.stream_encode_prefill(
             self._tokens(buf), plen, enc0)
         self._spks = self.flow.project_speaker(
-            torch.as_tensor(embedding, device=self.device))
+            torch.as_tensor(embedding, device=self.device).to(mu.dtype))
         tf = mu.shape[1]
         plen2 = plen * self.ratio
         fmask = (torch.arange(tf, device=self.device) < plen2)[None].to(
             mu.dtype)
-        conds = latent_normalize(c, torch.as_tensor(pf, device=self.device)
-                                 )[:, :tf] * fmask[..., None]
+        conds = latent_normalize(c, torch.as_tensor(
+            pf, device=self.device).to(mu.dtype))[:, :tf] * fmask[..., None]
         z = self.noise[:, :tf].to(mu.dtype)
         _, self._unet_caches = cfm.solve_euler_collect(
             self.flow.estimate, z, mu, fmask, self._spks, conds,

@@ -24,7 +24,8 @@ import torch
 from minimax_speech_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIM = 64
+# the head dims the kernel is instantiated for (csrc/attention_mma.cuh)
+HEAD_DIMS = (8, 16, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (a caller sets it to 0)
@@ -48,8 +49,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of one dtype on one device; kv_len: (B,) ints or None (= T). Returns
     (B, H, T, D) in q's dtype. Query rows that see no key are undefined.
 
-    CUDA tensors go to the kernel (float32 or bfloat16, contiguous,
-    D == 64) or raise; CPU tensors go to `reference_attention`. The
+    CUDA tensors go to the kernel (float32 or bfloat16, contiguous, D in
+    HEAD_DIMS) or raise; CPU tensors go to `reference_attention`. The
     kernel is forward-only: on CUDA, an input that requires grad under
     grad mode raises (kernels/splash.py, K2, is the differentiable
     route)."""
@@ -74,8 +75,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "the K1 flash_attention kernel has no backward pass; under grad "
             "use kernels.splash.splash_chunk_attention (K2), which is "
             "differentiable")
-    if d != HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim {HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

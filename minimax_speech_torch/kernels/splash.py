@@ -34,7 +34,8 @@ import torch
 from minimax_speech_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIM = 64
+# the head dims the kernels are instantiated for (csrc/attention_mma.cuh)
+HEAD_DIMS = (8, 16, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (a caller sets them to 0): one per
@@ -142,8 +143,8 @@ def _check(q, k, v, kv_len):
         return
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if d != HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head_dim {HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     if t == 0 or b * h == 0:
@@ -157,8 +158,8 @@ def splash_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v: (B, H, T, D) of one dtype on one device; kv_len: (B,) true
     lengths. Returns (B, H, T, D) in q's dtype. Differentiable.
 
-    CUDA tensors go to the kernels (float32 or bfloat16, D == 64) or
-    raise; CPU tensors go to `reference_splash_attention`."""
+    CUDA tensors go to the kernels (float32 or bfloat16, D in HEAD_DIMS)
+    or raise; CPU tensors go to `reference_splash_attention`."""
     _check(q, k, v, kv_len)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":

@@ -1,6 +1,8 @@
 """Time design variants of the attention kernels K1 and K2 on one GPU.
 
     python -m minimax_speech_torch.kernels.variants [variant ...]
+    python -m minimax_speech_torch.kernels.variants committed parent=DIR \
+        committed parent=DIR
     python -m minimax_speech_torch.kernels.variants --flow-grads [variant ...]
 
 Each variant is a copy of csrc/ under build/variants/<name>/ with one
@@ -34,6 +36,9 @@ variants:
                 before K2's forward took mma_acc<true>)
   rn_fwd        rn_acc on K2's forward O only: each of its products summed
                 in a zeroed fragment and added by fp32 adds
+  LABEL=DIR     the sources of another csrc/ directory as they are, e.g.
+                a parent commit's unpacked by git archive, timed in turns
+                with `committed` to hold a change to the same shapes
 
 --flow-grads measures K2's accuracy where the flow's training reaches
 it (run from the repo root; needs chip_smoke.py): the first-step
@@ -54,6 +59,7 @@ from __future__ import annotations
 import re
 import shutil
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,7 +79,7 @@ VARIANTS = {
     "unrolled_kk": [("#pragma unroll 1\n  for (int kk = 0;",
                      "#pragma unroll\n  for (int kk = 0;")],
     "tf32x1": [("mma3<kSplit, kSplit>(", "mma3<false, false>("),
-               ("mma3<true, Tile<T>::kFloat>(", "mma3<false, false>(")],
+               ("mma3<true, Tl::kFloat>(", "mma3<false, false>(")],
     "no_hmma": [('asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "\n'
                  '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, '
                  '{%0, %1, %2, %3};\\n"',
@@ -90,16 +96,16 @@ VARIANTS = {
                 "  mma(p, ah, bh);\n"
                 "#pragma unroll\n"
                 "  for (int e = 0; e < 4; ++e) d[e] += p[e];\n}")],
-    "chained": [("  float(&d)[8][4] = kTileSum ? part : acc;",
-                 "  float(&d)[8][4] = acc;")],
-    "rn_fwd": [("      mma3<true, Tile<T>::kFloat>(d[n], ah, al, bh, bl);",
+    "chained": [("  float(&d)[N][4] = kTileSum ? part : acc;",
+                 "  float(&d)[N][4] = acc;")],
+    "rn_fwd": [("      mma3<true, Tl::kFloat>(d[n], ah, al, bh, bl);",
                 "      if (kTileSum) {\n"
                 "        float q[4] = {0.f, 0.f, 0.f, 0.f};\n"
-                "        mma3<true, Tile<T>::kFloat>(q, ah, al, bh, bl);\n"
+                "        mma3<true, Tl::kFloat>(q, ah, al, bh, bl);\n"
                 "#pragma unroll\n"
                 "        for (int e = 0; e < 4; ++e) d[n][e] += q[e];\n"
                 "      } else {\n"
-                "        mma3<true, Tile<T>::kFloat>(d[n], ah, al, bh, bl);\n"
+                "        mma3<true, Tl::kFloat>(d[n], ah, al, bh, bl);\n"
                 "      }")],
     "fixed_b": [("to_f(b[(8 * n + g) * S + c])", "to_f(b[g * S + c])"),
                 ("to_f(b[(8 * n + g) * S + c + 4])", "to_f(b[g * S + c + 4])"),
@@ -191,7 +197,9 @@ def registers() -> str:
             if used and "bfloat16" not in fn:
                 kernel = re.search(r"(attn_fwd|splash_fwd|splash_dkdv|"
                                    r"splash_dq)I", fn)
-                out.append(f"{kernel[1] if kernel else fn} {used[1]}")
+                dim = re.search(r"Li(\d+)EE", fn)
+                out.append(f"{kernel[1] if kernel else fn}"
+                           f"{f'<{dim[1]}>' if dim else ''} {used[1]}")
     return ", ".join(out)
 
 
@@ -227,7 +235,12 @@ def main(names) -> int:
     root = build.BUILD_DIR.parent / "variants"
     saved = (fa.launches, dict(splash.launches))
     for name in names:
-        use(make_sources(name, src, root / name))
+        label, _, other = name.partition("=")
+        if other:  # another tree's sources as they are
+            shutil.rmtree(root / label, ignore_errors=True)
+            use(Path(shutil.copytree(other, root / label)))
+        else:
+            use(make_sources(name, src, root / name))
         build.build(["flash_attention", "splash_attention"])
         o1 = fa.flash_attention(q1, k1, v1, kv_len=len1)
         o2, lse = splash._kernel_forward(q2s, k2, v2, len2, 1, -1)
@@ -241,7 +254,7 @@ def main(names) -> int:
                                                          1, -1))
         bwd_ms = graph_ms(lambda: splash._kernel_backward(
             q2s, k2, v2, len2, 1, -1, o2, lse, do2))
-        print(f"[variant] {name:12s} K1 {k1_ms:.4f} ms | K2 fwd "
+        print(f"[variant] {label:12s} K1 {k1_ms:.4f} ms | K2 fwd "
               f"{fwd_ms:.4f} ms, bwd {bwd_ms:.4f} ms | max |err| K1 "
               f"{errs[0]:.2e}, K2 out/dq/dk/dv "
               f"{'/'.join(f'{e:.2e}' for e in errs[1:])} | registers "

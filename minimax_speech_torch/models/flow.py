@@ -277,15 +277,25 @@ def _start_noise(model: FlowModel, noise, mu):
         .to(mu.dtype)
 
 
+def flow_dtype(model: FlowModel) -> torch.dtype:
+    """The dtype the flow computes in: its estimator's parameters'
+    (bfloat16 under TTSConfig.bf16_flow, whose speaker encoder stays
+    float32)."""
+    return model.spk_embed_affine_layer.weight.dtype
+
+
 def _on_device(model: FlowModel, device, token, token_len, prompt_feat,
                embedding, noise):
+    """The inputs on the model's device, the float ones cast to
+    flow_dtype at the flow's boundary, as JAX's bf16 flow casts them."""
     dev = resolve_device(device)
     check_on(model, dev, "the flow model")
+    dt = flow_dtype(model)
     return (torch.as_tensor(token, device=dev).long(),
             torch.as_tensor(token_len, device=dev).long(),
-            torch.as_tensor(prompt_feat, device=dev),
-            torch.as_tensor(embedding, device=dev),
-            torch.as_tensor(noise, device=dev))
+            torch.as_tensor(prompt_feat, device=dev).to(dt),
+            torch.as_tensor(embedding, device=dev).to(dt),
+            torch.as_tensor(noise, device=dev).to(dt))
 
 
 @torch.no_grad()

@@ -145,19 +145,22 @@ FLOWAE_MODULES = tuple(
        "minimax_speech_torch.data.webdataset"]
     + [f"minimax_speech_torch.cli.{m}" for m in (
         "train_flowae", "train_flowae_image", "dito_infer", "image_dito")])
-# the host tools and export; the Qwen2 tokenizer, ported last
+# the host tools and export; the Qwen2 tokenizer and its class table;
+# the learn-and-speak proof and its bf16 flow A/B
 HOST_TOOL_MODULES = tuple(
     [f"minimax_speech_torch.cli.{m}" for m in (
-        "export", "hub_tools", "download_pretrained", "download_dataset")]
+        "export", "hub_tools", "download_pretrained", "download_dataset",
+        "overfit_pipeline", "eval_bf16_flow")]
     + [f"minimax_speech_torch.utils.{m}" for m in ("registry",
                                                    "preference")]
-    + ["minimax_speech_torch.infer.qwen_tokenizer"])
+    + [f"minimax_speech_torch.infer.{m}" for m in ("qwen_tokenizer",
+                                                   "qwen_unicode")])
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port loads no jax, flax, JAX
-    package, transformers or tokenizers module; the walk reaches each of
-    FLOWAE_MODULES and HOST_TOOL_MODULES."""
+    package, transformers, tokenizers or regex module; the walk reaches
+    each of FLOWAE_MODULES and HOST_TOOL_MODULES."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import minimax_speech_torch as p\n"
@@ -169,7 +172,7 @@ def test_port_imports_no_jax():
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
-        "'minimax_speech_tpu', 'transformers', 'tokenizers')]\n"
+        "'minimax_speech_tpu', 'transformers', 'tokenizers', 'regex')]\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

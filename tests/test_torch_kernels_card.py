@@ -23,11 +23,13 @@ K2_MODES = {"causal": (1, -1), "full": (0, -1), "chunk": (50, -1),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", t_fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", list(K1_MODES))
 @pytest.mark.parametrize("t,kv_len", [(506, (400, 400)), (77, (77, 40))])
-def test_k1_matches_plain_on_card(dtype, mode, t, kv_len):
-    """The CUDA kernel against the plain version on the card, valid rows.
+def test_k1_matches_plain_on_card(dtype, mode, t, kv_len, d):
+    """The CUDA kernel against the plain version on the card, valid rows,
+    at every head dim it is built for.
     float32: 1e-5 (same math, other summation order; TF32 off). bf16:
     one bf16 ulp of the value (both round an fp32 result) plus 1e-5 for
     fp32 noise on elements near zero, chip_smoke.py's limit."""
@@ -35,7 +37,7 @@ def test_k1_matches_plain_on_card(dtype, mode, t, kv_len):
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((2, 8, t, 64), generator=g, device="cuda")
+    q, k, v = (torch.randn((2, 8, t, d), generator=g, device="cuda")
                .to(dtype) for _ in range(3))
     lens = torch.tensor(kv_len, device="cuda")
     before = t_fa.launches
@@ -64,39 +66,55 @@ def test_k1_refuses_grad_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", t_sp.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", list(K2_MODES))
-@pytest.mark.parametrize("shape,kv_len", [((2, 14, 512, 64), (512, 301)),
-                                          ((2, 8, 77, 64), (77, 40))])
-def test_k2_matches_plain_on_card(dtype, mode, shape, kv_len):
-    """The CUDA kernels against the plain version on the card, all rows:
-    forward and dq, dk, dv, |err| <= atol + rtol * |ref|. float32: the
-    same math in other summation orders (TF32 off), 1e-5 + 1e-5 on the
-    output and 1e-5 + 1e-4 on the gradients. bf16: both sides round an
-    fp32 result, so they may differ by one bf16 ulp (rtol 2^-7); dq and
-    dk are compared after the known shift of the kernels' Delta, taken
-    from the rounded output (rounded_delta_shift); atol 1e-5 and 1e-4
-    cover fp32 noise on elements near zero."""
+@pytest.mark.parametrize("shape,kv_len", [((2, 14, 512), (512, 301)),
+                                          ((2, 8, 77), (77, 40))])
+def test_k2_matches_plain_on_card(dtype, mode, shape, kv_len, d):
+    """The CUDA kernels against the plain version on the card at every
+    head dim they are built for, all rows, the wrapper at its default
+    scale s = 1/sqrt(d): forward and dq, dk, dv, |err| <= atol + rtol *
+    |ref|. float32: the same math in other summation orders (TF32 off),
+    1e-5 + 1e-5 on the output and 1e-5 + 1e-4 on the gradients. bf16:
+    both sides round an fp32 result, so they may differ by one bf16 ulp
+    (rtol 2^-7); dq and dk are compared after the known shift of the
+    kernels' Delta, taken from the rounded output (rounded_delta_shift);
+    atol 1e-5 and 1e-4 cover fp32 noise on elements near zero. dq is s
+    times the gradient that reaches the scaled q, in float32, on both
+    sides: autograd of the scaling rounds it once more, exactly where s
+    is a power of two (d = 16, 64), by up to half an ulp on each side at
+    d = 8. The kernels' autograd dq is that gradient times s in q's
+    dtype, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     chunk, left = K2_MODES[mode]
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                   for _ in range(4))
+    q, k, v, do = (torch.randn((*shape, d), generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
     lens = torch.tensor(kv_len, device="cuda")
-
-    def run(fn):
-        x = [a.clone().requires_grad_() for a in (q, k, v)]
-        out = fn(*x, lens, chunk, left)
-        return [out.detach()] + list(torch.autograd.grad(out, x, do))
+    s = d ** -0.5
 
     before = dict(t_sp.launches)
-    ours = run(t_sp.splash_chunk_attention)
+    x = [a.clone().requires_grad_() for a in (q, k, v)]
+    out = t_sp.splash_chunk_attention(*x, lens, chunk, left)
+    caught = []
+    # the node that scaled q: the gradient it receives is the kernels' dq
+    out.grad_fn.next_functions[0][0].register_prehook(
+        lambda grads: caught.append(grads[0]))
+    dq, dk, dv = torch.autograd.grad(out, x, do)
     torch.cuda.synchronize()
     assert t_sp.launches["forward"] == before["forward"] + 1
     assert t_sp.launches["backward"] == before["backward"] + 1
-    ref = run(t_sp.reference_splash_attention)
+    assert torch.equal(dq, (caught[0] * s).to(dtype))
+    ours = [out.detach(), caught[0].float() * s, dk, dv]
+    # the plain version from the same scaled q, at scale 1
+    x = [(q * s).to(dtype)] + [k, v]
+    x = [a.clone().requires_grad_() for a in x]
+    ref = t_sp.reference_splash_attention(*x, lens, chunk, left, scale=1.0)
+    ref = [ref.detach()] + list(torch.autograd.grad(ref, x, do))
+    ref[1] = ref[1].float() * s
     dq_shift, dk_shift = t_sp.rounded_delta_shift(q, k, v, ours[0], do, lens,
                                                   chunk, left)
     f32 = dtype == torch.float32
@@ -106,6 +124,24 @@ def test_k2_matches_plain_on_card(dtype, mode, shape, kv_len):
                                          tols):
         torch.testing.assert_close(a.float() - shift, r.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 32, 128])
+def test_kernels_refuse_other_head_dims_on_card(d):
+    """A head dim outside HEAD_DIMS raises on CUDA and names the set; it
+    never drops to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (torch.randn((1, 2, 70, d), device="cuda") for _ in range(3))
+    lens = torch.tensor([70], device="cuda")
+    before = (t_fa.launches, dict(t_sp.launches))
+    with pytest.raises(ValueError, match=r"\(8, 16, 64\)"):
+        with torch.no_grad():
+            t_fa.flash_attention(q, k, v, kv_len=lens)
+    with pytest.raises(ValueError, match=r"\(8, 16, 64\)"):
+        t_sp.splash_causal_attention(q, k, v, lens)
+    assert (t_fa.launches, dict(t_sp.launches)) == before
 
 
 @pytest.mark.cuda

@@ -136,7 +136,7 @@ def test_entry_points_need_the_named_device(trees):
 
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py (imported, not run) and the port load no jax, flax,
-    JAX package, transformers or tokenizers module."""
+    JAX package, transformers, tokenizers or regex module."""
     code = (
         "import sys; sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
@@ -197,10 +197,13 @@ def test_chip_smoke_imports_no_jax():
         "minimax_speech_torch.cli.download_dataset, "
         "minimax_speech_torch.utils.registry, "
         "minimax_speech_torch.utils.preference, "
-        "minimax_speech_torch.infer.qwen_tokenizer\n"
+        "minimax_speech_torch.infer.qwen_tokenizer, "
+        "minimax_speech_torch.infer.qwen_unicode, "
+        "minimax_speech_torch.cli.overfit_pipeline, "
+        "minimax_speech_torch.cli.eval_bf16_flow\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
-        "'minimax_speech_tpu', 'transformers', 'tokenizers')]\n"
+        "'minimax_speech_tpu', 'transformers', 'tokenizers', 'regex')]\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
@@ -209,7 +212,7 @@ def test_chip_smoke_imports_no_jax():
 
 def test_chip_smoke_runs_every_phase_once():
     """chip_smoke.py's main and its STREAMS together time each of phases
-    1-50 exactly once; each stream is a worker's entry; merge updates one
+    1-51 exactly once; each stream is a worker's entry; merge updates one
     level into the kernels line's dicts."""
     import inspect
     import re
@@ -222,7 +225,7 @@ def test_chip_smoke_runs_every_phase_once():
     for fn in (cs.main, *cs.STREAM_FNS.values()):
         phases += [int(n) for n in
                    re.findall(r"phase_time\((\d+),", inspect.getsource(fn))]
-    assert sorted(phases) == list(range(1, 51))
+    assert sorted(phases) == list(range(1, 52))
     rec = {"launches_by_path": {"a": 1}, "launches": 560}
     cs.merge(rec, {"launches_by_path": {"b": 0}, "flowae": {"x": 1}})
     assert rec == {"launches_by_path": {"a": 1, "b": 0}, "launches": 560,

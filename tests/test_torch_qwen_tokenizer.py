@@ -484,16 +484,15 @@ def test_chip_smoke_phase_50_on_the_cpu():
 
 
 def test_characters_newer_than_pythons_unicode(monkeypatch, tmp_path):
-    """A known difference, kept: U+1C89 (Unicode 16.0, a letter) is
-    unassigned in Python 3.12's database, so the stdlib splitter takes it
-    for punctuation where tokenizers (and the regex package) see a
-    letter: "a\u1c89b" splits ["a", "\u1c89b"] against ["a\u1c89b"].
-    With a merge of "a" and U+1C89 in the table the ids differ; the
-    regex path gives transformers' ids."""
+    """U+1C89 (Unicode 16.0, a letter) is unassigned in Python 3.12's
+    database; infer/qwen_unicode.py's table makes the stdlib splitter
+    take it for a letter, as tokenizers (and the regex package) do:
+    "a\u1c89b" is one piece on every path, and with a merge of "a" and
+    U+1C89 in the table the ids agree with transformers'."""
     import unicodedata
     text = "a\u1c89b"
     assert unicodedata.category(text[1]) == "Cn"
-    assert t_qt.split_qwen2(text) == ["a", "\u1c89b"]
+    assert t_qt.split_qwen2(text) == [text]
     assert regex.findall(t_qt.QWEN2_PAT, text) == [text]
     vocab, merges = _hand_table()
     s = _b2s(text[1])
@@ -503,6 +502,54 @@ def test_characters_newer_than_pythons_unicode(monkeypatch, tmp_path):
     d = _write(tmp_path, vocab, merges, HAND_ADDED, "tokenizer.json")
     ref = _ref(d).encode(text)
     assert ref == [vocab["a" + s], vocab["b"]]
-    assert _port(monkeypatch, d, "stdlib").encode(text) == [
-        vocab["a"], vocab[s], vocab["b"]]
+    assert _port(monkeypatch, d, "stdlib").encode(text) == ref
     assert _port(monkeypatch, d, "regex").encode(text) == ref
+
+
+def derive_kind_ranges():
+    """infer/qwen_unicode.py's KIND_RANGES, derived from `tokenizers`:
+    every code point but the surrogates, in chunks, through Split
+    pre-tokenizers on \\s, \\p{L} and \\p{N} (Oniguruma, as the Qwen2
+    pre-tokenizer's QWEN2_PAT) with the matches removed; a code point
+    whose class there (white space first, as `_kind` tests) differs from
+    `_kind`'s joins the table, as runs of one class."""
+    from tokenizers import Regex, pre_tokenizers
+
+    from minimax_speech_torch.infer.whisper_tokenizer import _kind
+
+    probes = [(k, pre_tokenizers.Split(Regex(p), behavior="removed"))
+              for k, p in (("s", r"\s"), ("L", r"\p{L}"), ("N", r"\p{N}"))]
+    points = [c for c in range(0x110000) if not 0xD800 <= c <= 0xDFFF]
+    ranges = []
+    for i in range(0, len(points), 4096):
+        chunk = "".join(map(chr, points[i: i + 4096]))
+        kind = {}
+        for k, probe in probes:
+            kept = set("".join(p for p, _ in probe.pre_tokenize_str(chunk)))
+            for ch in chunk:
+                if ch not in kept:
+                    kind.setdefault(ch, k)
+        for ch in chunk:
+            k, cp = kind.get(ch, "o"), ord(ch)
+            if k == _kind(ch):
+                continue
+            if ranges and ranges[-1][1] == cp - 1 and ranges[-1][2] == k:
+                ranges[-1] = (ranges[-1][0], cp, k)
+            else:
+                ranges.append((cp, cp, k))
+    return tuple(ranges)
+
+
+def test_qwen_unicode_table_matches_tokenizers():
+    """The committed table equals a fresh derivation from the installed
+    tokenizers (skips where it does not import); split_qwen2 then gives
+    the regex package's pieces on a text of every code point the table
+    names, between ASCII letters, digits and spaces."""
+    pytest.importorskip("tokenizers")
+    from minimax_speech_torch.infer import qwen_unicode
+
+    assert derive_kind_ranges() == qwen_unicode.KIND_RANGES
+    chars = [chr(c) for a, b, _ in qwen_unicode.KIND_RANGES
+             for c in range(a, b + 1, max(1, (b - a) // 7))]
+    text = "".join(f"{c}x1 {c}{c}" for c in chars)
+    assert t_qt.split_qwen2(text) == regex.findall(t_qt.QWEN2_PAT, text)
