@@ -46,6 +46,7 @@ from minimax_speech_torch.data import mp3 as mp3_mod
 from minimax_speech_torch.models import llm as llm_mod
 from minimax_speech_torch.ops import mel as mel_ops
 from minimax_speech_torch.ops.pitch import yin_f0
+from minimax_speech_torch.utils.logging import span
 
 TOKEN_LATENT_RATIO = 2  # 50 Hz latents per 25 Hz token
 
@@ -466,48 +467,51 @@ def padding_llm(batches, mix_ratio=(5, 15), use_spk: bool = True,
     with the chosen plans' bistream flags. Fixed pads (static shapes):
     plans padded to pad_to (samples whose chosen or rejected plan is
     longer dropped with a warning), reference mels cut and padded to
-    pad_ref."""
+    pad_ref. Its own work on each batch is span `data.pad` while tracing
+    (utils/logging.py), closed before the batch is yielded."""
     for batch in batches:
-        if dpo:
-            kept = [s for s in batch if "reject_speech_token" in s]
-            if len(kept) < len(batch):
-                logging.warning(
-                    "padding_llm(dpo): dropping %d/%d samples missing "
-                    "reject_speech_token", len(batch) - len(kept), len(batch))
-            if not kept:
-                continue
-            batch = kept
-        flags = [random.random() < bistream_prob for _ in batch]
+        with span("data.pad"):
+            if dpo:
+                kept = [s for s in batch if "reject_speech_token" in s]
+                if len(kept) < len(batch):
+                    logging.warning(
+                        "padding_llm(dpo): dropping %d/%d samples missing "
+                        "reject_speech_token", len(batch) - len(kept),
+                        len(batch))
+                if not kept:
+                    continue
+                batch = kept
+            flags = [random.random() < bistream_prob for _ in batch]
 
-        def plan_for(token_key, pad_to=None):
-            return llm_mod.build_lm_plan(
-                [s["text_token"] for s in batch],
-                [s[token_key] for s in batch], mix_ratio=mix_ratio,
-                use_spk=use_spk, bistream_flags=flags, pad_to=pad_to, eos=eos,
-                fill=fill)
+            def plan_for(token_key, pad_to=None):
+                return llm_mod.build_lm_plan(
+                    [s["text_token"] for s in batch],
+                    [s[token_key] for s in batch], mix_ratio=mix_ratio,
+                    use_spk=use_spk, bistream_flags=flags, pad_to=pad_to,
+                    eos=eos, fill=fill)
 
-        keys = ("speech_token", "reject_speech_token") if dpo \
-            else ("speech_token",)
-        lens = np.max([plan_for(k)["seq_len"] for k in keys], axis=0)
-        if pad_to is None:
-            pad = _bucket(int(lens.max()), bucket_multiple)
-        else:
-            keep = [i for i in range(len(batch)) if lens[i] <= pad_to]
-            if len(keep) < len(batch):
-                logging.warning("padding_llm: dropped %d samples longer "
-                                "than pad_to=%d", len(batch) - len(keep),
-                                pad_to)
-            if not keep:
-                continue
-            batch = [batch[i] for i in keep]
-            flags = [flags[i] for i in keep]
-            pad = pad_to
-        out = plan_for("speech_token", pad)
-        if dpo:
-            out.update({k + "_rej": v for k, v in
-                        plan_for("reject_speech_token", pad).items()})
-        if "reference_mels" in batch[0]:
-            out.update(_pad_reference_mels(batch, 32, pad_ref))
+            keys = ("speech_token", "reject_speech_token") if dpo \
+                else ("speech_token",)
+            lens = np.max([plan_for(k)["seq_len"] for k in keys], axis=0)
+            if pad_to is None:
+                pad = _bucket(int(lens.max()), bucket_multiple)
+            else:
+                keep = [i for i in range(len(batch)) if lens[i] <= pad_to]
+                if len(keep) < len(batch):
+                    logging.warning("padding_llm: dropped %d samples longer "
+                                    "than pad_to=%d", len(batch) - len(keep),
+                                    pad_to)
+                if not keep:
+                    continue
+                batch = [batch[i] for i in keep]
+                flags = [flags[i] for i in keep]
+                pad = pad_to
+            out = plan_for("speech_token", pad)
+            if dpo:
+                out.update({k + "_rej": v for k, v in
+                            plan_for("reject_speech_token", pad).items()})
+            if "reference_mels" in batch[0]:
+                out.update(_pad_reference_mels(batch, 32, pad_ref))
         yield out
 
 

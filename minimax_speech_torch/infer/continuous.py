@@ -15,6 +15,13 @@ cache write past the pool is a device-side assert on CUDA, where JAX
 would clamp it silently. A burst copies its tokens to the host once, at
 its end. The noise is an `llm.NoiseFn` over the pool's lanes, indexed by
 the burst (`first_step` is 0), drawn from a generator unless given.
+
+With tracing on (utils/logging.py), a tick is span `serve.tick` over
+`serve.admit`, `lm.prefill` (`prefill.plan`, `prefill.lm`,
+`prefill.write`), `decode.burst` (`decode.sample` and `decode.step` per
+step, `decode.sync`) and `serve.hop` (`hop.flow`, `hop.codec`,
+`hop.copy`, `hop.cut`); each stream id is stamped `submit` and `grant`,
+and by `run` `due` and `first_audio`.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from minimax_speech_torch.models import llm as llm_mod
 from minimax_speech_torch.models import qwen2
 from minimax_speech_torch.ops import masks as mask_ops
 from minimax_speech_torch.utils.device import module_dtype
+from minimax_speech_torch.utils.logging import span, stamp
 
 
 @dataclass
@@ -90,40 +98,48 @@ class ContinuousBatcher(HopCutter):
 
     # -- device work -----------------------------------------------------------
     @torch.no_grad()
-    def _prefill_into(self, slot: int, r: Request) -> None:
-        """Prefill the request alone at its prompt bucket, then write its
-        cache block and decode state into lane `slot` of the pool."""
+    def _prefill_into(self, slot: int, r: Request, rid=None) -> None:
+        """Prefill the request (stream id `rid`) alone at its prompt
+        bucket, then write its cache block and decode state into lane
+        `slot` of the pool."""
         cfg = self.p.cfg
         dev = self.p.device
         m = self.p.lm
-        src, tok, plen = llm_mod.build_inference_plan(
-            np.concatenate([r.prompt_text_tokens, r.text_tokens]),
-            r.prompt_speech_tokens, use_spk=cfg.lm.use_speaker_encoder)
-        p = next_bucket(src.shape[1], buckets=self.prompt_buckets)
-        src = torch.as_tensor(np.pad(src, ((0, 0), (0, p - src.shape[1]))),
-                              device=dev).long()
-        tok = torch.as_tensor(np.pad(tok, ((0, 0), (0, p - tok.shape[1]))),
-                              device=dev).long()
-        n = int(plen[0])
-        emb = m.embed_plan(src, tok, torch.as_tensor(r.lm_spk[None],
-                                                     device=dev))
-        block = qwen2.make_cache(cfg.lm.qwen, 1, p, emb.dtype, dev)
-        pad = mask_ops.make_non_pad_mask(torch.tensor([n], device=dev), p)
-        hidden = m.prefill(emb, pad, torch.arange(p, device=dev)[None], block)
-        self._cache[0][:, slot, :p] = block[0][:, 0]
-        self._cache[1][:, slot, :p] = block[1][:, 0]
-        self._valid[slot] = False
-        self._valid[slot, :p] = pad[0]
-        self._logits[slot] = m.llm_decoder(hidden[0, n - 1]).float()
-        self._recent[slot] = -1
-        self._counts[slot] = 0
-        self._done[slot] = False
-        self._active[slot] = True
-        self._plen[slot] = n
-        n_text = len(r.text_tokens)
-        self._min_len[slot] = int(n_text * cfg.min_token_text_ratio)
-        self._max_len[slot] = min(int(n_text * cfg.max_token_text_ratio),
-                                  cfg.max_speech_tokens)
+        with span("lm.prefill", rid):
+            with span("prefill.plan"):
+                src, tok, plen = llm_mod.build_inference_plan(
+                    np.concatenate([r.prompt_text_tokens, r.text_tokens]),
+                    r.prompt_speech_tokens,
+                    use_spk=cfg.lm.use_speaker_encoder)
+                p = next_bucket(src.shape[1], buckets=self.prompt_buckets)
+                src, tok = (torch.as_tensor(np.pad(
+                    a, ((0, 0), (0, p - a.shape[1]))), device=dev).long()
+                    for a in (src, tok))
+                n = int(plen[0])
+                spk = torch.as_tensor(r.lm_spk[None], device=dev)
+                pad = mask_ops.make_non_pad_mask(
+                    torch.tensor([n], device=dev), p)
+                pos = torch.arange(p, device=dev)[None]
+            with span("prefill.lm"):
+                emb = m.embed_plan(src, tok, spk)
+                block = qwen2.make_cache(cfg.lm.qwen, 1, p, emb.dtype, dev)
+                hidden = m.prefill(emb, pad, pos, block)
+            with span("prefill.write"):
+                self._cache[0][:, slot, :p] = block[0][:, 0]
+                self._cache[1][:, slot, :p] = block[1][:, 0]
+                self._valid[slot] = False
+                self._valid[slot, :p] = pad[0]
+                self._logits[slot] = m.llm_decoder(hidden[0, n - 1]).float()
+                self._recent[slot] = -1
+                self._counts[slot] = 0
+                self._done[slot] = False
+                self._active[slot] = True
+                self._plen[slot] = n
+                n_text = len(r.text_tokens)
+                self._min_len[slot] = int(n_text * cfg.min_token_text_ratio)
+                self._max_len[slot] = min(
+                    int(n_text * cfg.max_token_text_ratio),
+                    cfg.max_speech_tokens)
 
     @torch.no_grad()
     def _burst(self, n: int):
@@ -134,27 +150,35 @@ class ContinuousBatcher(HopCutter):
         m = self.p.lm
         cfg = m.cfg
         eos = cfg.eos_token
-        g_top, g_fb = (torch.as_tensor(g, device=self.p.device).float()
-                       for g in self.noise(self._bursts, 0, n))
-        self._bursts += 1
-        out = []
-        for i in range(n):
-            toks = llm_mod.sample_step(cfg, self._logits, self._counts,
-                                       self._min_len, self._recent, g_top[i],
-                                       g_fb[i])
-            now_eos = (toks == eos) | (self._counts >= self._max_len)
-            self._done |= now_eos & self._active
-            emit = self._active & ~self._done
-            out.append(torch.where(emit, toks, torch.full_like(toks, -1)))
-            self._recent = llm_mod.push_recent_rows(self._recent, toks, emit)
-            slots_w = self._plen + self._counts  # each lane's write position
-            self._counts += emit.long()
-            emb1 = m.embed_speech_token(
-                torch.clamp(toks, 0, eos - 1).long())[:, None, :]
-            self._logits = m.decode_step_rows(
-                emb1, slots_w, self._valid, self._cache, slots_w,
-                emit).float()
-        return torch.stack(out, 1).cpu().numpy(), self._done.cpu().numpy()
+        with span("decode.burst"):
+            g_top, g_fb = (torch.as_tensor(g, device=self.p.device).float()
+                           for g in self.noise(self._bursts, 0, n))
+            self._bursts += 1
+            out = []
+            for i in range(n):
+                with span("decode.sample"):
+                    toks = llm_mod.sample_step(
+                        cfg, self._logits, self._counts, self._min_len,
+                        self._recent, g_top[i], g_fb[i])
+                    now_eos = (toks == eos) | (self._counts >= self._max_len)
+                    self._done |= now_eos & self._active
+                    emit = self._active & ~self._done
+                    out.append(torch.where(emit, toks,
+                                           torch.full_like(toks, -1)))
+                    self._recent = llm_mod.push_recent_rows(self._recent,
+                                                            toks, emit)
+                    # each lane's write position
+                    slots_w = self._plen + self._counts
+                    self._counts += emit.long()
+                with span("decode.step"):
+                    emb1 = m.embed_speech_token(
+                        torch.clamp(toks, 0, eos - 1).long())[:, None, :]
+                    self._logits = m.decode_step_rows(
+                        emb1, slots_w, self._valid, self._cache, slots_w,
+                        emit).float()
+            with span("decode.sync"):
+                return (torch.stack(out, 1).cpu().numpy(),
+                        self._done.cpu().numpy())
 
     # -- host scheduling -------------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -173,40 +197,45 @@ class ContinuousBatcher(HopCutter):
                 f"prompt/text or construct the batcher with larger "
                 f"prompt_buckets")
         rid = next(self._ids)
+        stamp(rid, "submit")
         self._queue.append((rid, request))
         return rid
 
     def _admit(self):
-        for slot, lane in enumerate(self.lanes):
-            if not self._queue:
-                return
-            if lane.free:
-                rid, r = self._queue.pop(0)
-                self._prefill_into(slot, r)
-                self.lanes[slot] = _Lane(request_id=rid, request=r,
-                                         free=False)
+        with span("serve.admit"):
+            for slot, lane in enumerate(self.lanes):
+                if not self._queue:
+                    return
+                if lane.free:
+                    rid, r = self._queue.pop(0)
+                    stamp(rid, "grant")
+                    self._prefill_into(slot, r, rid)
+                    self.lanes[slot] = _Lane(request_id=rid, request=r,
+                                             free=False)
 
     def tick(self) -> list[StreamEvent]:
         """Admit queued requests, run one decode burst, hop ready lanes."""
-        self._admit()
-        if all(lane.free for lane in self.lanes):
-            return []
-        toks, done = self._burst(self.token_hop)
-        for i, lane in enumerate(self.lanes):
-            if lane.free or lane.done:
-                continue
-            new = toks[i][toks[i] >= 0]
-            lane.tokens.extend(int(t) for t in new)
-            lane.pending += len(new)
-            lane.done = bool(done[i])
-        events = list(self._hop())
-        # recycle flushed lanes, then admit at once, so a waiting request
-        # loses at most one tick
-        for i, lane in enumerate(self.lanes):
-            if lane.flushed:
-                self.lanes[i] = _Lane()
-        self._admit()
-        return events
+        with span("serve.tick"):
+            self._admit()
+            if all(lane.free for lane in self.lanes):
+                return []
+            toks, done = self._burst(self.token_hop)
+            for i, lane in enumerate(self.lanes):
+                if lane.free or lane.done:
+                    continue
+                new = toks[i][toks[i] >= 0]
+                lane.tokens.extend(int(t) for t in new)
+                lane.pending += len(new)
+                lane.done = bool(done[i])
+            with span("serve.hop"):
+                events = list(self._hop())
+            # recycle flushed lanes, then admit at once, so a waiting request
+            # loses at most one tick
+            for i, lane in enumerate(self.lanes):
+                if lane.flushed:
+                    self.lanes[i] = _Lane()
+            self._admit()
+            return events
 
     def busy(self) -> bool:
         return bool(self._queue) or any(not lane.free for lane in self.lanes)
@@ -238,7 +267,8 @@ class ContinuousBatcher(HopCutter):
             pf, pfl, np.stack([r.flow_emb for r in reqs]))
         for j, i in enumerate(idxs):
             lane = self.lanes[i]
-            audio = self.cut(lane, wav[j], int(pfl[j]))
+            with span("hop.cut"):
+                audio = self.cut(lane, wav[j], int(pfl[j]))
             if audio is None:
                 if lane.done:
                     lane.flushed = True
@@ -256,7 +286,10 @@ class ContinuousBatcher(HopCutter):
         callable giving 'now'; by default a simulated clock that jumps to
         the next arrival when idle and advances by each tick's host time
         (each tick ends in a copy to the host, so that includes the
-        device's work). Yields (emit_time, event)."""
+        device's work). Yields (emit_time, event). Each request is stamped
+        `due` at its arrival time on time.perf_counter (its submission
+        less how late `clock` says it was submitted), and `first_audio`
+        as its first audio is handed on."""
         pending = sorted(arrivals, key=lambda a: a[0])
         use_wall = clock is not None
         now = 0.0
@@ -266,8 +299,12 @@ class ContinuousBatcher(HopCutter):
 
         i = 0
         while i < len(pending) or self.busy():
-            while i < len(pending) and pending[i][0] <= t():
-                self.submit(pending[i][1])
+            while i < len(pending):
+                late = t() - pending[i][0]
+                if late < 0:
+                    break
+                due = time.perf_counter() - late
+                stamp(self.submit(pending[i][1]), "due", due)
                 i += 1
             if not self.busy():
                 if use_wall:
@@ -280,4 +317,6 @@ class ContinuousBatcher(HopCutter):
             if not use_wall:
                 now += time.perf_counter() - t0
             for ev in events:
+                if len(ev.audio):
+                    stamp(ev.stream, "first_audio")
                 yield t(), ev

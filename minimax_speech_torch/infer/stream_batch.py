@@ -28,6 +28,7 @@ from minimax_speech_torch.models import llm as llm_mod
 from minimax_speech_torch.models import qwen2
 from minimax_speech_torch.models.flow import flow_inference_batched
 from minimax_speech_torch.ops import masks as mask_ops
+from minimax_speech_torch.utils.logging import span
 
 
 @dataclass
@@ -75,15 +76,20 @@ class HopCutter:
         a bucket, then the pipeline's vocoder; prompt features pf (B, Tp,
         80) with true lengths pfl, speaker embeddings femb (B, 192).
         Returns every stream's whole waveform (B, S), float32, on the
-        host."""
-        tok = np.zeros((len(seqs), next_bucket(max(len(q) for q in seqs))),
-                       np.int64)
-        for j, q in enumerate(seqs):
-            tok[j, : len(q)] = q
-        feat = flow_inference_batched(
-            self.p.flow, tok, [len(q) for q in seqs], pf, pfl, femb,
-            self.p.noise, streaming=True, device=self.p.device)
-        return self.p.decode(feat).cpu().numpy()
+        host. Spans `hop.flow`, `hop.codec` and `hop.copy` (the copy to
+        the host) while tracing (utils/logging.py)."""
+        with span("hop.flow"):
+            tok = np.zeros((len(seqs),
+                            next_bucket(max(len(q) for q in seqs))), np.int64)
+            for j, q in enumerate(seqs):
+                tok[j, : len(q)] = q
+            feat = flow_inference_batched(
+                self.p.flow, tok, [len(q) for q in seqs], pf, pfl, femb,
+                self.p.noise, streaming=True, device=self.p.device)
+        with span("hop.codec"):
+            wav = self.p.decode(feat)
+        with span("hop.copy"):
+            return wav.cpu().numpy()
 
     def cut(self, s: StreamState, wav: np.ndarray,
             prompt_frames: int) -> Optional[np.ndarray]:

@@ -24,6 +24,11 @@ their gradients summed over tp first. The optimizer keeps ZeRO-2 slices
 whole model's. The all-reduce stands where ZeRO-2 proper reduce-scatters:
 gloo takes no reduce-scatter of CUDA tensors, and one card's two-rank
 runs go through gloo.
+
+With tracing on (utils/logging.py) a step is span `train.step` over
+`train.forward` (the loss), `train.backward` (the gradients), `train.optim`
+(the optimizer's update) and, for the LM and flow steps, `train.norms`
+(the gradient norms).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from minimax_speech_torch.parallel.mesh import Mesh
 from minimax_speech_torch.train.schedule import (OptState, Optimizer,
                                                  global_norm, global_norms)
 from minimax_speech_torch.utils.device import check_on, resolve_device
+from minimax_speech_torch.utils.logging import span
 from minimax_speech_torch.utils.params_io import named_flax_params
 
 LM_NORM_GROUPS = {"llm": "llm/", "decoder": "llm_decoder",
@@ -221,9 +227,11 @@ def make_lm_train_step(model, bf16: bool = False, device=None):
     names = [path for path, _ in named_flax_params(model)]
 
     def step(state: TrainState, batch):
-        loss, acc = loss_fn(batch, group=state.dp_group)
-        return state, _apply(state, loss, names, LM_NORM_GROUPS,
-                             acc=acc.detach())
+        with span("train.step"):
+            with span("train.forward"):
+                loss, acc = loss_fn(batch, group=state.dp_group)
+            return state, _apply(state, loss, names, LM_NORM_GROUPS,
+                                 acc=acc.detach())
 
     return step
 
@@ -241,9 +249,11 @@ def make_flow_train_step(model, bf16: bool = False, device=None,
     names = [path for path, _ in named_flax_params(model)]
 
     def step(state: TrainState, batch, draws):
-        loss = loss_fn(batch, draws, streaming=streaming,
-                       group=state.dp_group)
-        return state, _apply(state, loss, names, FLOW_NORM_GROUPS)
+        with span("train.step"):
+            with span("train.forward"):
+                loss = loss_fn(batch, draws, streaming=streaming,
+                               group=state.dp_group)
+            return state, _apply(state, loss, names, FLOW_NORM_GROUPS)
 
     return step
 
@@ -257,12 +267,15 @@ def make_matcha_train_step(model, device=None):
     check_on(model, resolve_device(device), "the Matcha model")
 
     def step(state: TrainState, batch, draws):
-        dur, prior, cfm = model(batch["tokens"], batch["token_len"],
-                                batch["mels"], batch["mel_len"], draws)
-        loss = dur + prior + cfm
-        backward_and_update(state, loss)
-        return state, {"loss": loss.detach(), "dur": dur.detach(),
-                       "prior": prior.detach(), "cfm": cfm.detach()}
+        with span("train.step"):
+            with span("train.forward"):
+                dur, prior, cfm = model(batch["tokens"], batch["token_len"],
+                                        batch["mels"], batch["mel_len"],
+                                        draws)
+                loss = dur + prior + cfm
+            backward_and_update(state, loss)
+            return state, {"loss": loss.detach(), "dur": dur.detach(),
+                           "prior": prior.detach(), "cfm": cfm.detach()}
 
     return step
 
@@ -273,8 +286,9 @@ def backward_and_update(state: TrainState, loss) -> list:
     are) and one step on the counter. Returns the gradients (`gradients`).
     """
     grads = gradients(state, loss)
-    state.optimizer.apply(state.params(), grads, state.opt_state,
-                          state.layouts, state.mesh)
+    with span("train.optim"):
+        state.optimizer.apply(state.params(), grads, state.opt_state,
+                              state.layouts, state.mesh)
     state.step += 1
     return grads
 
@@ -285,14 +299,15 @@ def gradients(state: TrainState, loss) -> list:
     the global batch's: summed over dp (the partial ones over tp
     first), each whole over dp and this rank's slice over tp."""
     params = state.params()
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
-    mesh = state.mesh
-    if mesh is not None:
-        all_reduce_buckets([g for g, lay in zip(grads, state.layouts)
-                            if lay.partial], mesh.tp_group)
-        all_reduce_buckets(grads, mesh.dp_group)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        mesh = state.mesh
+        if mesh is not None:
+            all_reduce_buckets([g for g, lay in zip(grads, state.layouts)
+                                if lay.partial], mesh.tp_group)
+            all_reduce_buckets(grads, mesh.dp_group)
     return grads
 
 
@@ -301,7 +316,8 @@ def _apply(state: TrainState, loss, names, groups, **shares) -> dict:
     global batch's metrics), grad_norm and grad_norm/<component>."""
     grads = backward_and_update(state, loss)
     mesh, lay = state.mesh, state.layouts
-    return {**dp_sum(state, {"loss": loss.detach(), **shares}),
-            "grad_norm": global_norm(grads, lay, mesh),
-            **grad_norms_by_component(list(zip(names, grads)), groups, lay,
-                                      mesh)}
+    metrics = dp_sum(state, {"loss": loss.detach(), **shares})
+    with span("train.norms"):
+        return {**metrics, "grad_norm": global_norm(grads, lay, mesh),
+                **grad_norms_by_component(list(zip(names, grads)), groups,
+                                          lay, mesh)}

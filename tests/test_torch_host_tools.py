@@ -625,11 +625,19 @@ def test_mpg123_available_as_jax():
 
 
 def test_profile_writes_a_trace(tmp_path):
+    """The trace holds the program's spans as ranges, with tracing off
+    and nothing kept in memory."""
     with t_logging.profile(str(tmp_path / "trace")):
-        torch.ones(8) @ torch.ones(8)
+        with t_logging.span("program.region"):
+            torch.ones(8) @ torch.ones(8)
+    assert t_logging.span("a") is t_logging.span("b")  # off again
+    assert t_logging.take() == {"spans": [], "stamps": {}}
     traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
-    json.loads(traces[0].read_text())
+    events = json.loads(traces[0].read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    assert any(e.get("name") == "program.region"
+               and e.get("cat") == "user_annotation" for e in events)
 
 
 @pytest.mark.parametrize("name", ["constant", "squareroot_constant"])
